@@ -1,0 +1,476 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's compaction pipeline on one card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one NVIDIA GPU, nvcc and
+PyTorch built for CUDA. It
+
+1. builds the three kernels (K1 bitonic sort, K2 fused merge-resolve, K3
+   bloom build) from ``rocksplicator_tpu_torch/ops/csrc`` — one nvcc per
+   source, all started together;
+2. holds each kernel against its plain PyTorch version on the card, element
+   for element (tolerance 0: these are integer lanes);
+3. drives the main path through the entry points — ``entry()``, the bench
+   configuration over 8 shards of 2^17 entries, and one 2^22-entry job with
+   every fast-path flag off — under both ``sort_backend``s, with every
+   launch count set to 0 just before and read just after, and compares
+   every output with the plain pipeline on the card;
+4. checks a small hand-made batch against known answers;
+5. times each kernel and each forward (median of CUDA-event timed runs
+   after warm-up: 10 at the 2^22 shape, 50 at the host-bound small shapes,
+   whose medians move most from call to call) beside its plain version and
+   its memory bound, and profiles 8 bench-shard forwards.
+
+Every phase raises on failure and the script then exits non-zero. Without
+CUDA, or without the package beside it, it exits non-zero and prints no
+result. The last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import struct
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BENCH_SHARDS = 8
+BIG_N = 1 << 22
+DEVICE = "cuda"
+REPS = 10
+SHORT_REPS = 50  # host-bound shapes (< ~10 ms a call)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = REPS, warmup: int = 5) -> float:
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_err(a, b) -> int:
+    """Largest |a - b| over two lane tensors compared as unsigned."""
+    import torch
+
+    from rocksplicator_tpu_torch.ops.lanes import widen
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
+                             f"{tuple(b.shape)} {b.dtype}")
+    if a.numel() == 0:
+        return 0
+    if a.dtype == torch.bool:
+        return int((a != b).any())
+    if a.dtype == torch.int32:
+        return int((widen(a) - widen(b)).abs().max())
+    return int((a.long() - b.long()).abs().max())
+
+
+def compare_outputs(got: dict, want: dict, what: str) -> int:
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    worst = 0
+    for k in want:
+        err = max_abs_err(got[k], want[k])
+        if err:
+            raise AssertionError(f"{what}: output {k!r} differs from the "
+                                 f"plain version (max abs err {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def _kernel_group(name: str) -> str:
+    if "bitonic" in name:
+        return "K2 sort (bitonic stages)"
+    if "scan_" in name:
+        return "K2 scans"
+    for k in ("build_lanes", "boundaries", "limbs", "resolve", "compact"):
+        if k in name:
+            return "K2 resolve passes"
+    if "bloom_build" in name:
+        return "K3 bloom build"
+    return "torch ops (planar encode, checksums, fills)"
+
+
+def profile_shards(shards, forward_ms: float) -> dict:
+    """torch.profiler over one forward of each bench shard (fused
+    backend): device time by kernel name and group, and the device's idle
+    share twice: between the first kernel start and the last kernel end of
+    the profiled window (the profiler's own host work widens the gaps), and
+    against ``forward_ms``, one forward's CUDA-event time without the
+    profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for model, args in shards:
+        model.sort_backend = "fused"
+        model(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for model, args in shards:
+            model(*args)
+        torch.cuda.synchronize()
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    if not spans:
+        return {"device_time_us": "not measured"}
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    groups: dict = {}
+    for n, t in by_name.items():
+        g = _kernel_group(n)
+        groups[g] = groups.get(g, 0.0) + t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    busy_per_forward_ms = busy / len(shards) / 1e3
+    return {"shards": len(shards), "device_kernels": len(spans),
+            "device_busy_us": busy, "device_window_us": window,
+            "device_idle_share_profiled": (1 - busy / window if window
+                                           else None),
+            "forward_event_ms": forward_ms,
+            "device_idle_share_event": 1 - busy_per_forward_ms / forward_ms,
+            "groups_us": groups,
+            "top_kernels_us": [[n[:80], t] for n, t in top]}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        from rocksplicator_tpu_torch.entry import bench_model, entry
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is missing ({exc})",
+              file=sys.stderr)
+        return 2
+    from rocksplicator_tpu_torch.models.compaction_model import (
+        FORWARD_ARGS, CompactionModel, synth_counter_batch,
+        synth_mixed_batch)
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.ops.bitonic_sort import (
+        bitonic_sort_lanes, sort_lanes_plain)
+    from rocksplicator_tpu_torch.ops.bloom import bloom_build_plain
+    from rocksplicator_tpu_torch.ops.bloom_kernel import launch_bloom_build
+    from rocksplicator_tpu_torch.ops.compaction_kernel import (
+        MergeKind, composite_key_lanes, merge_resolve_plain)
+    from rocksplicator_tpu_torch.ops.fused_resolve import fused_merge_resolve
+    from rocksplicator_tpu_torch.ops.kv_format import (pack_entries,
+                                                       unpack_entries)
+    from rocksplicator_tpu_torch.ops.lanes import (lanes_from_numpy,
+                                                   lanes_to_numpy)
+    from rocksplicator_tpu_torch.storage.records import OpType
+
+    dev = torch.device(DEVICE)
+    torch.manual_seed(0)
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # ---- 1. build ----------------------------------------------------
+    t0 = time.time()
+    reports = _build.build_all()
+    build_s = time.time() - t0
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln][:12]
+             for k, v in reports.items()}
+    emit({"phase": "build", "seconds": round(build_s, 2),
+          "dir": str(_build.build_dir()), "ptxas": ptxas})
+    sources = {
+        "bitonic_sort": ("rocksplicator_tpu_torch/ops/csrc/bitonic_sort.cu",
+                         "rocksplicator_tpu/ops/pallas_sort.py:190"),
+        "fused_resolve": ("rocksplicator_tpu_torch/ops/csrc/fused_resolve.cu",
+                          "rocksplicator_tpu/ops/pallas_resolve.py:277"),
+        "bloom_build": ("rocksplicator_tpu_torch/ops/csrc/bloom_build.cu",
+                        "rocksplicator_tpu/ops/pallas_kernels.py:57"),
+    }
+    emit({"phase": "kernels", "sources": {k: v[0] for k, v in
+                                          sources.items()}})
+
+    def lanes_of(batch):
+        t = lanes_from_numpy(batch, dev)
+        return tuple(t[k] for k in FORWARD_ARGS)
+
+    def sort_operands(args, uniform_klen, seq32, key_words):
+        kw, kl, shi, slo, vt, vw, vl, valid = args
+        ops = composite_key_lanes(
+            (~valid).to(torch.int32), [kw[:, w] for w in range(key_words)],
+            kl, shi, slo, uniform_klen=uniform_klen, seq32=seq32)
+        num_keys = len(ops)
+        ops += [vt, vl] + [vw[:, w] for w in range(vw.shape[1])]
+        return [x.contiguous() for x in ops], num_keys
+
+    errs = {k: 0 for k in sources}
+
+    # ---- 2. kernel parity on the card --------------------------------
+    bench_args = lanes_of(synth_counter_batch(1 << 17, seed=0))
+    k1_bench = sort_operands(bench_args, True, True, 4)
+    k1_cases = {
+        "bench_10_lanes_6_keys": k1_bench,
+        "flags_off_14_lanes_10_keys": sort_operands(
+            lanes_of(synth_mixed_batch(1 << 17, seed=1, valid_frac=1.0)),
+            False, False, 6),
+    }
+    for case, (ops, num_keys) in k1_cases.items():
+        got = bitonic_sort_lanes(ops, num_keys)
+        want = sort_lanes_plain(ops, num_keys)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        errs["bitonic_sort"] = max(errs["bitonic_sort"], err)
+        if err:
+            raise AssertionError(f"K1 {case}: differs from plain ({err})")
+        emit({"phase": "parity", "kernel": "bitonic_sort", "case": case,
+              "lanes": len(ops), "num_keys": num_keys, "n": 1 << 17,
+              "max_abs_err": err})
+
+    k2_cases = 0
+    for mk in MergeKind:
+        for drop in (True, False):
+            for uniform in (True, False):
+                for seq32 in (True, False):
+                    for key_words in (4, 6):
+                        args = lanes_of(synth_mixed_batch(
+                            4096, seed=k2_cases, uniform_klen=uniform,
+                            seq32=seq32, key_words=key_words))
+                        flags = dict(merge_kind=mk, drop_tombstones=drop,
+                                     uniform_klen=uniform, seq32=seq32,
+                                     key_words=key_words)
+                        errs["fused_resolve"] = max(
+                            errs["fused_resolve"], compare_outputs(
+                                fused_merge_resolve(*args, **flags),
+                                merge_resolve_plain(*args, **flags),
+                                f"K2 {flags}"))
+                        k2_cases += 1
+    ovf_args = lanes_of(synth_mixed_batch(1 << 17, seed=99,
+                                          hot_rows=70000))
+    got = fused_merge_resolve(*ovf_args)
+    if not bool(got["needs_cpu_fallback"]):
+        raise AssertionError("K2 missed the 2^16-operand overflow flag")
+    compare_outputs(got, merge_resolve_plain(*ovf_args), "K2 overflow")
+    emit({"phase": "parity", "kernel": "fused_resolve", "n": 4096,
+          "flag_cases": k2_cases, "overflow_case_n": 1 << 17,
+          "max_abs_err": errs["fused_resolve"]})
+
+    k3_n = 1 << 17
+    k3_batch = synth_mixed_batch(k3_n, seed=5)
+    k3_kw = lanes_from_numpy({"k": k3_batch["key_words_le"]}, dev)["k"]
+    k3_kl = lanes_from_numpy({"k": k3_batch["key_len"]}, dev)["k"]
+    k3_valid = torch.from_numpy(k3_batch["valid"]).to(dev)
+    k3_words = 40960
+    got = launch_bloom_build(k3_kw, k3_kl, k3_valid, num_words=k3_words)
+    want = bloom_build_plain(k3_kw, k3_kl, k3_valid, num_words=k3_words)
+    errs["bloom_build"] = max_abs_err(got, want)
+    if errs["bloom_build"]:
+        raise AssertionError("K3 differs from its plain version")
+    emit({"phase": "parity", "kernel": "bloom_build", "n": k3_n,
+          "num_words": k3_words, "max_abs_err": errs["bloom_build"]})
+
+    # ---- 3. the main path, counted -----------------------------------
+    entry_model, entry_args = entry(dev)
+    shards = [bench_model(dev, seed=s) for s in range(BENCH_SHARDS)]
+    bench_cfg = shards[0][0]
+    big_model = CompactionModel(capacity=BIG_N, emit_planar=True,
+                                row_klen=24, row_vlen=8)
+    big_args = lanes_of(synth_counter_batch(
+        BIG_N, seed=11, key_bytes=24, start_seq=(1 << 32) - BIG_N // 2))
+    runs = [("entry", entry_model, entry_args)]
+    runs += [(f"bench_shard{s}", m, a) for s, (m, a) in enumerate(shards)]
+    runs += [("job_2p22", big_model, big_args)]
+    results = {}
+    per_backend = {}
+    for backend in ("fused", "bitonic"):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for label, model, args in runs:
+            model.sort_backend = backend
+            results[(backend, label)] = model(*args)
+        torch.cuda.synchronize()
+        per_backend[backend] = dict(_build.LAUNCHES)
+    launches = {k: sum(c[k] for c in per_backend.values())
+                for k in sources}
+    emit({"phase": "main_path", "forwards_per_backend": len(runs),
+          "launches": per_backend,
+          "launches_per_forward": {
+              b: {k: c[k] / len(runs) for k in c}
+              for b, c in per_backend.items()}})
+    for kname, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {kname} was not launched on the "
+                                 f"main path")
+    counts = {}
+    for label, model, args in runs:
+        want = model.forward_plain(*args)
+        for backend in ("fused", "bitonic"):
+            compare_outputs(results[(backend, label)], want,
+                            f"{label} [{backend}]")
+        counts[label] = int(want["count"])
+        if bool(want["needs_cpu_fallback"]):
+            raise AssertionError(f"{label}: unexpected overflow flag")
+        for k, v in want.items():
+            if v.dim() and v.shape[0] != model.capacity and k not in (
+                    "bloom", "planar_words", "planar_chk"):
+                raise AssertionError(f"{label}: {k} has shape {v.shape}")
+    emit({"phase": "main_path_parity", "counts": counts,
+          "compared_with": "forward_plain on the card", "max_abs_err": 0})
+
+    # ---- 4. known answers on a small batch ---------------------------
+    pk = struct.Struct("<q").pack
+    entries = [
+        (b"ctr", 1, OpType.PUT, pk(100)), (b"ctr", 2, OpType.MERGE, pk(5)),
+        (b"ctr", 3, OpType.MERGE, pk(7)), (b"del", 1, OpType.PUT, pk(1)),
+        (b"del", 2, OpType.DELETE, b""), (b"del", 3, OpType.MERGE, pk(9)),
+        (b"gone", 4, OpType.PUT, pk(3)), (b"gone", 5, OpType.DELETE, b""),
+        (b"neg", 6, OpType.PUT, pk(-5)), (b"neg", 7, OpType.MERGE, pk(-10)),
+        (b"pure", 8, OpType.MERGE, pk(3)), (b"pure", 9, OpType.MERGE, pk(4)),
+    ]
+    expect = [(b"ctr", OpType.PUT, pk(112)), (b"del", OpType.PUT, pk(9)),
+              (b"neg", OpType.PUT, pk(-15)), (b"pure", OpType.PUT, pk(7))]
+    batch = pack_entries(entries, capacity=256)
+    small = CompactionModel(capacity=256)
+    for backend in ("fused", "bitonic"):
+        small.sort_backend = backend
+        out = lanes_to_numpy(small(*lanes_of(
+            {k: getattr(batch, k) for k in FORWARD_ARGS})))
+        got = [(k, vt, v) for k, _s, vt, v in unpack_entries(
+            out["key_words_be"], out["key_len"], out["seq_hi"],
+            out["seq_lo"], out["vtype"], out["val_words"], out["val_len"],
+            out["count"])]
+        if got != expect:
+            raise AssertionError(f"known answers [{backend}]: {got}")
+    emit({"phase": "known_answers", "entries": len(entries), "ok": True})
+
+    # ---- 5. timings ----------------------------------------------------
+    def mb(*ts) -> float:
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def bound(nbytes: float) -> float:
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    ops, num_keys = k1_bench
+    k1_ms = time_ms(lambda: bitonic_sort_lanes(ops, num_keys), SHORT_REPS)
+    k1_plain = time_ms(lambda: sort_lanes_plain(ops, num_keys), SHORT_REPS)
+    big_ops, big_keys = sort_operands(big_args, False, False, 6)
+    k1_big = time_ms(lambda: bitonic_sort_lanes(big_ops, big_keys))
+
+    bflags = dict(uniform_klen=True, seq32=True, key_words=4)
+    k2_ms = time_ms(lambda: fused_merge_resolve(*bench_args, **bflags),
+                    SHORT_REPS)
+    k2_plain = time_ms(lambda: merge_resolve_plain(*bench_args, **bflags),
+                       SHORT_REPS)
+    k2_big = time_ms(lambda: fused_merge_resolve(*big_args))
+    k2_out = fused_merge_resolve(*bench_args, **bflags)
+    kw, kl, shi, slo, vt, vw, vl, valid = bench_args
+    k2_bytes = (mb(kw[:, :4], slo, vt, vw, vl, valid)
+                + mb(*[v for v in k2_out.values() if v.dim()]))
+
+    bench_out = results[("fused", "bench_shard0")]
+    b_valid = torch.arange(bench_cfg.capacity, device=dev) < bench_out[
+        "count"]
+    b_words = bench_cfg.num_bloom_words
+    k3_args = (bench_out["key_words_le"], bench_out["key_len"], b_valid)
+    k3_ms = time_ms(lambda: launch_bloom_build(*k3_args, num_words=b_words),
+                    SHORT_REPS)
+    k3_plain = time_ms(lambda: bloom_build_plain(*k3_args,
+                                                 num_words=b_words),
+                       SHORT_REPS)
+    k3_bytes = mb(*k3_args) + 4 * b_words
+
+    forwards = {}
+    for (label, model, args), reps in zip([runs[0], runs[1], runs[-1]],
+                                          (SHORT_REPS, SHORT_REPS, REPS)):
+        row = {"reps": reps}
+        for backend in ("fused", "bitonic"):
+            model.sort_backend = backend
+            row[f"{backend}_ms"] = time_ms(lambda: model(*args), reps)
+        row["plain_ms"] = time_ms(lambda: model.forward_plain(*args), reps)
+        forwards[label] = row
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for model, args in shards:
+        model.sort_backend = "fused"
+        model(*args)
+    torch.cuda.synchronize()
+    forwards["bench_8_shards_host_clock"] = {
+        "fused_ms": (time.time() - t0) * 1e3}
+    emit({"phase": "timings", "card": card,
+          "k1_ms_2p22_14_lanes": k1_big, "k2_ms_2p22_flags_off": k2_big,
+          "forward_ms": forwards})
+
+    profile = profile_shards(shards, forwards["bench_shard0"]["fused_ms"])
+    emit({"phase": "profile", "card": card, **profile})
+
+    kernels = [
+        {"name": "bitonic_sort", "route": "cuda",
+         "source": sources["bitonic_sort"][0],
+         "replaces": sources["bitonic_sort"][1],
+         "launches": launches["bitonic_sort"],
+         "max_abs_err": errs["bitonic_sort"], "ms": k1_ms,
+         "plain_ms": k1_plain, "bound_ms": bound(2 * mb(*ops)),
+         "bound_by": "bytes", "library_ms": None,
+         "shape": f"N=2^17, {len(ops)} lanes, {num_keys} keys"},
+        {"name": "fused_resolve", "route": "cuda",
+         "source": sources["fused_resolve"][0],
+         "replaces": sources["fused_resolve"][1],
+         "launches": launches["fused_resolve"],
+         "max_abs_err": errs["fused_resolve"], "ms": k2_ms,
+         "plain_ms": k2_plain, "bound_ms": bound(k2_bytes),
+         "bound_by": "bytes", "library_ms": None,
+         "shape": "N=2^17 bench flags"},
+        {"name": "bloom_build", "route": "cuda",
+         "source": sources["bloom_build"][0],
+         "replaces": sources["bloom_build"][1],
+         "launches": launches["bloom_build"],
+         "max_abs_err": errs["bloom_build"], "ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": bound(k3_bytes),
+         "bound_by": "bytes", "library_ms": None,
+         "shape": f"N=2^17, {b_words} words"},
+    ]
+    print(card, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

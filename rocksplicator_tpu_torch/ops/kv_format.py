@@ -1,0 +1,167 @@
+"""Fixed-shape KV batch representation (numpy, host side) — counterpart of
+``rocksplicator_tpu/ops/kv_format.py``.
+
+- keys → 24-byte zero-padded prefixes as 6 big-endian u32 lanes plus a
+  length lane (lexicographic byte order == ascending (word0..word5, len));
+- values → zero-padded to a fixed byte width as little-endian u32 lanes plus
+  a length lane;
+- seqs → (hi, lo) u32 pairs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..storage.records import OpType
+
+KEY_BYTES = 24
+KEY_WORDS = KEY_BYTES // 4
+VAL_BYTES_DEFAULT = 8
+
+# The canonical lane set every array pipeline carries.
+LANE_FIELDS = (
+    "key_words_be", "key_words_le", "key_len", "seq_hi", "seq_lo",
+    "vtype", "val_words", "val_len",
+)
+
+Entry = Tuple[bytes, int, int, bytes]  # key, seq, vtype, value
+
+
+class UnsupportedBatch(Exception):
+    """Raised when entries don't fit the fixed-shape representation."""
+
+
+@dataclass
+class KVBatch:
+    """Struct-of-arrays batch of N entries (numpy, host-side)."""
+
+    key_words_be: np.ndarray   # (N, 6) u32, big-endian word values
+    key_words_le: np.ndarray   # (N, 6) u32, little-endian (bloom hashing)
+    key_len: np.ndarray        # (N,) u32
+    seq_hi: np.ndarray         # (N,) u32
+    seq_lo: np.ndarray         # (N,) u32
+    vtype: np.ndarray          # (N,) u32 (OpType)
+    val_words: np.ndarray      # (N, val_words) u32 little-endian padded
+    val_len: np.ndarray        # (N,) u32
+    valid: np.ndarray          # (N,) bool
+    val_bytes: int
+
+    @property
+    def capacity(self) -> int:
+        return self.key_len.shape[0]
+
+    def num_valid(self) -> int:
+        return int(self.valid.sum())
+
+    def payload_bytes(self) -> int:
+        """Logical bytes represented (keys + values of valid entries)."""
+        return int((self.key_len[self.valid].sum()
+                    + self.val_len[self.valid].sum()))
+
+
+def pack_entries(
+    entries: Sequence[Entry],
+    capacity: Optional[int] = None,
+    val_bytes: int = VAL_BYTES_DEFAULT,
+) -> KVBatch:
+    """Pack (key, seq, vtype, value) tuples into fixed lanes.
+
+    Raises UnsupportedBatch for keys > 24B or values > val_bytes.
+    """
+    n = len(entries)
+    cap = capacity or n
+    if n > cap:
+        raise UnsupportedBatch(f"{n} entries exceed capacity {cap}")
+    vw = val_bytes // 4
+    key_buf = np.zeros((cap, KEY_BYTES), dtype=np.uint8)
+    val_buf = np.zeros((cap, val_bytes), dtype=np.uint8)
+    key_len = np.zeros(cap, dtype=np.uint32)
+    val_len = np.zeros(cap, dtype=np.uint32)
+    seq = np.zeros(cap, dtype=np.uint64)
+    vtype = np.zeros(cap, dtype=np.uint32)
+    valid = np.zeros(cap, dtype=bool)
+    for i, (key, s, vt, value) in enumerate(entries):
+        if len(key) > KEY_BYTES:
+            raise UnsupportedBatch(f"key too long for the lanes: {len(key)}")
+        if len(value) > val_bytes:
+            raise UnsupportedBatch(
+                f"value too long for the lanes: {len(value)}")
+        key_buf[i, : len(key)] = np.frombuffer(key, dtype=np.uint8)
+        val_buf[i, : len(value)] = np.frombuffer(value, dtype=np.uint8)
+        key_len[i] = len(key)
+        val_len[i] = len(value)
+        seq[i] = s
+        vtype[i] = int(vt)
+        valid[i] = True
+    key_words_be = key_buf.view(">u4").astype(np.uint32).reshape(
+        cap, KEY_WORDS)
+    key_words_le = key_buf.view("<u4").reshape(cap, KEY_WORDS).copy()
+    val_words = val_buf.view("<u4").reshape(cap, vw).copy()
+    return KVBatch(
+        key_words_be=key_words_be,
+        key_words_le=key_words_le,
+        key_len=key_len,
+        seq_hi=(seq >> np.uint64(32)).astype(np.uint32),
+        seq_lo=(seq & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+        vtype=vtype,
+        val_words=val_words,
+        val_len=val_len,
+        valid=valid,
+        val_bytes=val_bytes,
+    )
+
+
+def unpack_entries(
+    key_words_be: np.ndarray,
+    key_len: np.ndarray,
+    seq_hi: np.ndarray,
+    seq_lo: np.ndarray,
+    vtype: np.ndarray,
+    val_words: np.ndarray,
+    val_len: np.ndarray,
+    count: int,
+) -> List[Entry]:
+    """Output arrays → entry tuples (first ``count`` rows)."""
+    count = int(count)
+    kb = (
+        np.ascontiguousarray(key_words_be[:count].astype(">u4"))
+        .view(np.uint8)
+        .reshape(count, KEY_BYTES)
+    )
+    vb = (
+        np.ascontiguousarray(val_words[:count].astype("<u4"))
+        .view(np.uint8)
+        .reshape(count, -1)
+    )
+    seqs = (seq_hi[:count].astype(np.uint64) << np.uint64(32)) | seq_lo[
+        :count
+    ].astype(np.uint64)
+    out: List[Entry] = []
+    for i in range(count):
+        kl = int(key_len[i])
+        vl = int(val_len[i])
+        out.append(
+            (
+                kb[i, :kl].tobytes(),
+                int(seqs[i]),
+                OpType(int(vtype[i])),
+                vb[i, :vl].tobytes(),
+            )
+        )
+    return out
+
+
+def fast_flags(key_len: np.ndarray, seq_hi: np.ndarray,
+               valid: np.ndarray) -> Tuple[bool, bool, int]:
+    """(uniform_klen, seq32, key_words): host-side checks that let the
+    merge-resolve drop sort operands. ``key_words`` = u32 lanes that carry
+    key bytes for some valid row (ceil(max_klen / 4), at least 1)."""
+    kl = key_len[valid]
+    uniform = bool(len(kl) == 0 or (kl == kl[0]).all())
+    seq32 = bool((seq_hi[valid] == 0).all())
+    max_kl = int(kl.max()) if len(kl) else 0
+    key_words = max(1, (max_kl + 3) // 4)
+    return uniform, seq32, key_words
