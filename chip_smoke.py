@@ -6,11 +6,13 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU, nvcc and
 PyTorch built for CUDA. It
 
-1. builds the three kernels (K1 bitonic sort, K2 fused merge-resolve, K3
+1. builds the three kernels (K1 lane sort, K2 fused merge-resolve, K3
    bloom build) from ``rocksplicator_tpu_torch/ops/csrc`` — one nvcc per
    source, all started together;
 2. holds each kernel against its plain PyTorch version on the card, element
-   for element (tolerance 0: these are integer lanes);
+   for element (tolerance 0: these are integer lanes), K1 on tied keys too
+   (it is stable), and checks the CUDA launches that K1's and K2's C entry
+   points count per call against the wrappers' plans;
 3. drives the main path through the entry points — ``entry()``, the bench
    configuration over 8 shards of 2^17 entries, and one 2^22-entry job with
    every fast-path flag off — under both ``sort_backend``s, with every
@@ -20,7 +22,8 @@ PyTorch built for CUDA. It
 5. times each kernel and each forward (median of CUDA-event timed runs
    after warm-up: 10 at the 2^22 shape, 50 at the host-bound small shapes,
    whose medians move most from call to call) beside its plain version and
-   its memory bound, and profiles 8 bench-shard forwards.
+   its memory bound, K1 and K2 at 2^17 and 2^22, both over the sort tiles
+   the plan could choose, and profiles 8 bench-shard forwards.
 
 Every phase raises on failure and the script then exits non-zero. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -106,15 +109,16 @@ def compare_outputs(got: dict, want: dict, what: str) -> int:
 
 
 def _kernel_group(name: str) -> str:
-    if "bitonic" in name:
-        return "K2 sort (bitonic stages)"
-    if "scan_" in name:
-        return "K2 scans"
-    for k in ("build_lanes", "boundaries", "limbs", "resolve", "compact"):
-        if k in name:
-            return "K2 resolve passes"
+    if "tile_sort" in name or "merge_pass" in name:
+        return "K2 sort (tile sort, merge passes)"
+    if "build_keys" in name:
+        return "K2 key build"
+    if "resolve_compact" in name:
+        return "K2 resolve + scans + compact"
     if "bloom_build" in name:
         return "K3 bloom build"
+    if "memset" in name.lower():
+        return "memsets (K2 status words, torch fills)"
     return "torch ops (planar encode, checksums, fills)"
 
 
@@ -173,6 +177,7 @@ def profile_shards(shards, forward_ms: float) -> dict:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -187,14 +192,15 @@ def main() -> int:
     from rocksplicator_tpu_torch.models.compaction_model import (
         FORWARD_ARGS, CompactionModel, synth_counter_batch,
         synth_mixed_batch)
-    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.ops import _build, bitonic_sort
     from rocksplicator_tpu_torch.ops.bitonic_sort import (
-        bitonic_sort_lanes, sort_lanes_plain)
+        bitonic_sort_lanes, plan_sort, sort_lanes_plain)
     from rocksplicator_tpu_torch.ops.bloom import bloom_build_plain
     from rocksplicator_tpu_torch.ops.bloom_kernel import launch_bloom_build
     from rocksplicator_tpu_torch.ops.compaction_kernel import (
         MergeKind, composite_key_lanes, merge_resolve_plain)
-    from rocksplicator_tpu_torch.ops.fused_resolve import fused_merge_resolve
+    from rocksplicator_tpu_torch.ops.fused_resolve import (
+        fused_merge_resolve, plan_fused)
     from rocksplicator_tpu_torch.ops.kv_format import (pack_entries,
                                                        unpack_entries)
     from rocksplicator_tpu_torch.ops.lanes import (lanes_from_numpy,
@@ -241,26 +247,75 @@ def main() -> int:
         ops += [vt, vl] + [vw[:, w] for w in range(vw.shape[1])]
         return [x.contiguous() for x in ops], num_keys
 
+    def tied_lanes(n, num_keys, lanes, seed):
+        """Keys from a 3-value alphabet (high bit set on odd lanes), so
+        most rows tie; payload: distinct row numbers, then random words."""
+        rng = np.random.default_rng(seed)
+        cols = {}
+        for i in range(lanes):
+            if i < num_keys:
+                v = (rng.integers(0, 3, n).astype(np.uint32)
+                     | np.uint32(0x80000000) * np.uint32(i % 2))
+            elif i == num_keys:
+                v = rng.permutation(n).astype(np.uint32)
+            else:
+                v = rng.integers(0, 1 << 32, n,
+                                 dtype=np.uint64).astype(np.uint32)
+            cols[str(i)] = v
+        t = lanes_from_numpy(cols, dev)
+        return [t[str(i)] for i in range(lanes)], num_keys
+
+    def check_calls(kernel: str, want: int, what: str) -> int:
+        """The CUDA launches the C entry point counted in its last call
+        must be the plan's."""
+        got = _build.CUDA_LAUNCHES[kernel]
+        if got != want:
+            raise AssertionError(f"{what}: {got} CUDA launches in one call, "
+                                 f"the plan says {want}")
+        return got
+
+    def k1_calls(ops, num_keys) -> int:
+        return plan_sort(ops[0].shape[0], num_keys,
+                         len(ops) - num_keys).launches
+
+    def k2_calls(args, flags) -> int:
+        return plan_fused(args[5].shape[0], args[5].shape[1],
+                          flags.get("key_words", 6),
+                          flags.get("uniform_klen", False),
+                          flags.get("seq32", False)).launches
+
     errs = {k: 0 for k in sources}
 
     # ---- 2. kernel parity on the card --------------------------------
     bench_args = lanes_of(synth_counter_batch(1 << 17, seed=0))
+    big_args = lanes_of(synth_counter_batch(
+        BIG_N, seed=11, key_bytes=24, start_seq=(1 << 32) - BIG_N // 2))
     k1_bench = sort_operands(bench_args, True, True, 4)
+    k1_big = sort_operands(big_args, False, False, 6)
     k1_cases = {
         "bench_10_lanes_6_keys": k1_bench,
         "flags_off_14_lanes_10_keys": sort_operands(
             lanes_of(synth_mixed_batch(1 << 17, seed=1, valid_frac=1.0)),
             False, False, 6),
+        "ties_10_lanes_6_keys": tied_lanes(1 << 17, 6, 10, 21),
+        "ties_n256_4_lanes_2_keys": tied_lanes(256, 2, 4, 22),
+        "ties_n4096_8_lanes_3_keys": tied_lanes(1 << 12, 3, 8, 23),
+        "ties_n4096_16_lanes_15_keys": tied_lanes(1 << 12, 15, 16, 24),
+        "ties_16_lanes_12_keys": tied_lanes(1 << 17, 12, 16, 25),
+        "job_2p22_14_lanes_10_keys": k1_big,
     }
     for case, (ops, num_keys) in k1_cases.items():
         got = bitonic_sort_lanes(ops, num_keys)
+        calls = check_calls("bitonic_sort", k1_calls(ops, num_keys),
+                            f"K1 {case}")
         want = sort_lanes_plain(ops, num_keys)
         err = max(max_abs_err(g, w) for g, w in zip(got, want))
         errs["bitonic_sort"] = max(errs["bitonic_sort"], err)
         if err:
             raise AssertionError(f"K1 {case}: differs from plain ({err})")
         emit({"phase": "parity", "kernel": "bitonic_sort", "case": case,
-              "lanes": len(ops), "num_keys": num_keys, "n": 1 << 17,
+              "lanes": len(ops), "num_keys": num_keys,
+              "n": ops[0].shape[0], "launches_per_call": calls,
               "max_abs_err": err})
 
     k2_cases = 0
@@ -275,10 +330,12 @@ def main() -> int:
                         flags = dict(merge_kind=mk, drop_tombstones=drop,
                                      uniform_klen=uniform, seq32=seq32,
                                      key_words=key_words)
+                        got = fused_merge_resolve(*args, **flags)
+                        check_calls("fused_resolve", k2_calls(args, flags),
+                                    f"K2 {flags}")
                         errs["fused_resolve"] = max(
                             errs["fused_resolve"], compare_outputs(
-                                fused_merge_resolve(*args, **flags),
-                                merge_resolve_plain(*args, **flags),
+                                got, merge_resolve_plain(*args, **flags),
                                 f"K2 {flags}"))
                         k2_cases += 1
     ovf_args = lanes_of(synth_mixed_batch(1 << 17, seed=99,
@@ -311,8 +368,6 @@ def main() -> int:
     bench_cfg = shards[0][0]
     big_model = CompactionModel(capacity=BIG_N, emit_planar=True,
                                 row_klen=24, row_vlen=8)
-    big_args = lanes_of(synth_counter_batch(
-        BIG_N, seed=11, key_bytes=24, start_seq=(1 << 32) - BIG_N // 2))
     runs = [("entry", entry_model, entry_args)]
     runs += [(f"bench_shard{s}", m, a) for s, (m, a) in enumerate(shards)]
     runs += [("job_2p22", big_model, big_args)]
@@ -386,22 +441,74 @@ def main() -> int:
     def bound(nbytes: float) -> float:
         return nbytes / HBM_BYTES_PER_S * 1e3
 
-    ops, num_keys = k1_bench
-    k1_ms = time_ms(lambda: bitonic_sort_lanes(ops, num_keys), SHORT_REPS)
-    k1_plain = time_ms(lambda: sort_lanes_plain(ops, num_keys), SHORT_REPS)
-    big_ops, big_keys = sort_operands(big_args, False, False, 6)
-    k1_big = time_ms(lambda: bitonic_sort_lanes(big_ops, big_keys))
+    def k1_row(ops, num_keys, reps) -> dict:
+        """K1 and its plain version on the same lanes; the bound moves
+        each lane in once and out once."""
+        row = {"n": ops[0].shape[0], "lanes": len(ops),
+               "num_keys": num_keys, "reps": reps,
+               "tile": plan_sort(ops[0].shape[0], num_keys,
+                                 len(ops) - num_keys).tile}
+        row["ms"] = time_ms(lambda: bitonic_sort_lanes(ops, num_keys), reps)
+        row["launches_per_call"] = check_calls(
+            "bitonic_sort", k1_calls(ops, num_keys), "K1 timing")
+        row["plain_ms"] = time_ms(lambda: sort_lanes_plain(ops, num_keys),
+                                  reps)
+        row["bound_ms"] = bound(2 * mb(*ops))
+        return row
+
+    def k2_row(args, flags, reps) -> dict:
+        """K2 and its plain version; the bound reads the input lanes the
+        flags use and writes every output once."""
+        kw, kl, shi, slo, vt, vw, vl, valid = args
+        key_words = flags.get("key_words", 6)
+        out = fused_merge_resolve(*args, **flags)
+        used = [kw[:, :key_words], kl, slo, vt, vw, vl, valid]
+        if not flags.get("seq32", False):
+            used.append(shi)
+        row = {"n": vw.shape[0], "flags": dict(flags),
+               "reps": reps,
+               "tile": plan_fused(vw.shape[0], vw.shape[1], key_words,
+                                  flags.get("uniform_klen", False),
+                                  flags.get("seq32", False)).sort.tile}
+        row["ms"] = time_ms(lambda: fused_merge_resolve(*args, **flags),
+                            reps)
+        row["launches_per_call"] = check_calls(
+            "fused_resolve", k2_calls(args, flags), "K2 timing")
+        row["plain_ms"] = time_ms(
+            lambda: merge_resolve_plain(*args, **flags), reps)
+        row["bound_ms"] = bound(
+            mb(*used) + mb(*[v for v in out.values() if v.dim()]))
+        return row
 
     bflags = dict(uniform_klen=True, seq32=True, key_words=4)
-    k2_ms = time_ms(lambda: fused_merge_resolve(*bench_args, **bflags),
-                    SHORT_REPS)
-    k2_plain = time_ms(lambda: merge_resolve_plain(*bench_args, **bflags),
-                       SHORT_REPS)
-    k2_big = time_ms(lambda: fused_merge_resolve(*big_args))
-    k2_out = fused_merge_resolve(*bench_args, **bflags)
-    kw, kl, shi, slo, vt, vw, vl, valid = bench_args
-    k2_bytes = (mb(kw[:, :4], slo, vt, vw, vl, valid)
-                + mb(*[v for v in k2_out.values() if v.dim()]))
+    k1_rows = [k1_row(*k1_bench, SHORT_REPS), k1_row(*k1_big, REPS)]
+    k2_rows = [k2_row(bench_args, bflags, SHORT_REPS),
+               k2_row(big_args, {}, REPS)]
+    emit({"phase": "k1_k2_timings", "card": card, "k1": k1_rows,
+          "k2": k2_rows})
+
+    # the sort tile the plan picks (the largest) against the smaller ones
+    # it could pick, which give more blocks but more merge passes: K1 and
+    # K2 at 2^17 (host time included), K1 at 2^22 (device-bound)
+    sweep = []
+    planned_tile = bitonic_sort.MAX_TILE
+    ops, num_keys = k1_bench
+    big_ops, big_keys = k1_big
+    try:
+        for tile in (256, 512, 1024, 2048):
+            bitonic_sort.MAX_TILE = tile
+            sweep.append({
+                "tile": tile,
+                "k1_ms": time_ms(lambda: bitonic_sort_lanes(ops, num_keys),
+                                 SHORT_REPS),
+                "k2_ms": time_ms(lambda: fused_merge_resolve(
+                    *bench_args, **bflags), SHORT_REPS),
+                "k1_ms_2p22": time_ms(
+                    lambda: bitonic_sort_lanes(big_ops, big_keys))})
+    finally:
+        bitonic_sort.MAX_TILE = planned_tile
+    emit({"phase": "tile_sweep", "card": card,
+          "planned_tile": k1_rows[0]["tile"], "rows": sweep})
 
     bench_out = results[("fused", "bench_shard0")]
     b_valid = torch.arange(bench_cfg.capacity, device=dev) < bench_out[
@@ -432,9 +539,7 @@ def main() -> int:
     torch.cuda.synchronize()
     forwards["bench_8_shards_host_clock"] = {
         "fused_ms": (time.time() - t0) * 1e3}
-    emit({"phase": "timings", "card": card,
-          "k1_ms_2p22_14_lanes": k1_big, "k2_ms_2p22_flags_off": k2_big,
-          "forward_ms": forwards})
+    emit({"phase": "timings", "card": card, "forward_ms": forwards})
 
     profile = profile_shards(shards, forwards["bench_shard0"]["fused_ms"])
     emit({"phase": "profile", "card": card, **profile})
@@ -444,18 +549,22 @@ def main() -> int:
          "source": sources["bitonic_sort"][0],
          "replaces": sources["bitonic_sort"][1],
          "launches": launches["bitonic_sort"],
-         "max_abs_err": errs["bitonic_sort"], "ms": k1_ms,
-         "plain_ms": k1_plain, "bound_ms": bound(2 * mb(*ops)),
-         "bound_by": "bytes", "library_ms": None,
-         "shape": f"N=2^17, {len(ops)} lanes, {num_keys} keys"},
+         "max_abs_err": errs["bitonic_sort"], "ms": k1_rows[0]["ms"],
+         "plain_ms": k1_rows[0]["plain_ms"],
+         "bound_ms": k1_rows[0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "launches_per_call": k1_rows[0]["launches_per_call"],
+         "shape": "N=2^17, 10 lanes, 6 keys", "shapes": k1_rows},
         {"name": "fused_resolve", "route": "cuda",
          "source": sources["fused_resolve"][0],
          "replaces": sources["fused_resolve"][1],
          "launches": launches["fused_resolve"],
-         "max_abs_err": errs["fused_resolve"], "ms": k2_ms,
-         "plain_ms": k2_plain, "bound_ms": bound(k2_bytes),
-         "bound_by": "bytes", "library_ms": None,
-         "shape": "N=2^17 bench flags"},
+         "max_abs_err": errs["fused_resolve"], "ms": k2_rows[0]["ms"],
+         "plain_ms": k2_rows[0]["plain_ms"],
+         "bound_ms": k2_rows[0]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "launches_per_call": k2_rows[0]["launches_per_call"],
+         "shape": "N=2^17 bench flags", "shapes": k2_rows},
         {"name": "bloom_build", "route": "cuda",
          "source": sources["bloom_build"][0],
          "replaces": sources["bloom_build"][1],

@@ -1,7 +1,8 @@
 """Ops of the compaction pipeline — counterpart of ``rocksplicator_tpu/ops``.
 
 Three hand-written CUDA kernels for Hopper (``csrc/``) carry the path:
-K1 the bitonic lane sort (``bitonic_sort.py``), K2 the fused merge-resolve
+K1 the lane sort (``bitonic_sort.py``, a stable merge sort on the card
+under the TPU kernel's name), K2 the fused merge-resolve
 (``fused_resolve.py``) and K3 the bloom build (``bloom_kernel.py``). Each
 sits beside its plain PyTorch version, which CPU tensors get.
 """

@@ -9,12 +9,15 @@ happen on first use, never at import; ``build_all`` starts one ``nvcc``
 per source, all at once.
 
 Every C entry point returns a ``cudaError_t`` (0 on success), checked with
-``cudaGetLastError`` after each launch inside; ``check`` raises on any
-other value. There is no fallback: a kernel that does not build or does
-not launch raises.
+``cudaGetLastError`` after each launch inside, or a negative code for an
+argument it refuses before launching; ``check`` raises on any value but
+0. There is no fallback: a kernel that does not build or does not launch
+raises.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it; the
 wrappers add one right after a successful launch and nowhere else.
+``CUDA_LAUNCHES`` holds, per kernel, the CUDA launches (kernels and
+memsets) of its last call, as its C entry point counted them.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+CUDA_LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -44,8 +48,10 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, cuda_launches: Optional[int] = None) -> None:
     LAUNCHES[name] += 1
+    if cuda_launches is not None:
+        CUDA_LAUNCHES[name] = cuda_launches
 
 
 def _digest() -> str:
@@ -123,7 +129,7 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+def check(lib: ctypes.CDLL, rc: int, what: object) -> None:
     if rc != 0:
         msg = lib.rs_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

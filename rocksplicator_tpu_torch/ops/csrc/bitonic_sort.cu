@@ -1,22 +1,48 @@
-// Kernel K1: lexicographic bitonic sort of u32 lanes, payload riding along.
+// Kernel K1: stable lexicographic sort of u32 lanes, payload riding along.
 // Replaces rocksplicator_tpu/ops/pallas_sort.py bitonic_sort_lanes (the
-// pallas_call at :190). The device code is in bitonic_sort.cuh; this file
-// is its plain C entry point for ctypes.
+// pallas_call at :190). The device code, a merge sort over the key lanes
+// and a row index, is in merge_sort.cuh; this file is its plain C entry
+// point for ctypes. The name stays K1's so that the JAX counterpart and
+// the measurements keep one name.
 
-#include "bitonic_sort.cuh"
+#include "merge_sort.cuh"
 
 extern "C" {
 
 const char* rs_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return rs::error_string(err);
 }
 
-// lanes: (num_lanes, n) u32, contiguous, sorted in place on `stream`.
-int rs_bitonic_sort(void* lanes, int num_lanes, int num_keys, int n,
-                    void* stream) {
-  return static_cast<int>(rs::bitonic_sort_device(
-      static_cast<uint32_t*>(lanes), num_lanes, num_keys, n,
-      static_cast<cudaStream_t>(stream)));
+// ins / outs: host arrays of num_lanes device pointers to (n,) u32 lanes;
+// the first num_keys are the keys. The plan comes from the wrapper
+// (ops/bitonic_sort.py plan_sort); scratch holds its scratch_words. Adds
+// the CUDA launches it makes to *launches.
+int rs_bitonic_sort(void* const* ins, int num_lanes, int num_keys, int n,
+                    int tile, int chunk, int passes, int smem,
+                    int64_t scratch_words, void* scratch, void* const* outs,
+                    int* launches, void* stream) {
+  if (num_lanes < 1 || num_lanes > rs::kMaxLanes || num_keys < 1 ||
+      num_keys > num_lanes)
+    return rs::kErrShape;
+  const rs::SortPlan plan{n, num_keys, num_lanes - num_keys, tile, chunk,
+                          passes, smem, scratch_words};
+  if (!rs::plan_ok(plan)) return rs::kErrPlan;
+  rs::LaneIn keys{}, payload{};
+  rs::LaneOut out{};
+  for (int l = 0; l < num_lanes; ++l) {
+    out.p[l] = static_cast<uint32_t*>(outs[l]);
+    const uint32_t* p = static_cast<const uint32_t*>(ins[l]);
+    if (l < num_keys) {
+      keys.p[l] = p;
+      keys.stride[l] = 1;
+    } else {
+      payload.p[l - num_keys] = p;
+      payload.stride[l - num_keys] = 1;
+    }
+  }
+  return static_cast<int>(rs::merge_sort_device(
+      keys, payload, out, plan, static_cast<uint32_t*>(scratch),
+      static_cast<cudaStream_t>(stream), launches));
 }
 
 }  // extern "C"

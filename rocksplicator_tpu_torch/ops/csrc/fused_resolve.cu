@@ -3,38 +3,48 @@
 //
 // Replaces rocksplicator_tpu/ops/pallas_resolve.py fused_merge_resolve (the
 // pallas_call at :277), whose body _fused_kernel keeps every lane in VMEM
-// and expresses scans and fills as shift ladders. Here the phases are a
-// sequence of kernels on one stream over lanes in device memory:
-//   1. build the composite lanes (invalid, key words, [klen], [~seq_hi],
-//      ~seq_lo, then vtype, val_len, value words) and the uniform-klen
-//      constant (max key length over valid rows);
-//   2. sort them with the K1 bitonic network (bitonic_sort.cuh);
-//   3. one boundary pass: new_key / last_key, segment-start index, base flag;
-//   4. the segmented quantities of resolve_decisions: a max-scan of the
-//      start index, a sum-scan of base entries, then sum-scans (mod 2^32,
-//      exactly the JAX u32 wraparound) of the four 16-bit limbs and the
-//      three flag counts; each segment's totals are end - before-start;
-//   5. resolve at each segment's representative row, the keep flag;
-//   6. stream compaction as an exclusive prefix sum of keep plus a scatter,
-//      stable by construction (the order lax.sort(is_stable=True) gives);
-//      rows at or past count stay zero (the caller zeroes the outputs).
-// Each scan is a block scan per tile and a second level over tile totals;
-// no library sort, scan or GEMM.
+// and expresses scans and fills as shift ladders. Here one call is 4 +
+// passes CUDA launches on one stream:
+//   0. one cudaMemsetAsync of the status words (meta, tile counter,
+//      look-back flags);
+//   1. build_keys: the composite key lanes (invalid, key words, [klen],
+//      [~seq_hi], ~seq_lo) and the uniform-klen constant (max key length
+//      over valid rows);
+//   2. the K1 merge sort (merge_sort.cuh) over those keys and a row index;
+//      its last launch gathers the payload (vtype, val_len, value words)
+//      straight from the inputs into sorted order;
+//   3. resolve_compact, one pass with two single-pass scans with decoupled
+//      look-back, a warp reading 32 earlier tiles at a time (tile ids from
+//      an atomic counter, so no block waits on one that has not started):
+//      - a segmented scan whose state per key segment is (start index,
+//        "first PUT/DELETE seen", 4 u32 limb sums, operand / first-base
+//        PUT / first-base DELETE counts); rows after a segment's first
+//        PUT/DELETE add nothing, which is resolve_decisions' base_before
+//        == 0 rule. Each segment resolves at its LAST row, where the
+//        inclusive state holds its totals; the limb sums wrap mod 2^32
+//        exactly as the JAX u32 arithmetic does;
+//      - a sum scan of keep over those last rows: rank of each kept row,
+//        in sorted order (the stable compaction of lax.sort(is_stable));
+//      - the kept row (the segment's first, newest row, resolved) is
+//        written at its rank; each tile zeroes its share of the rows at or
+//        past count, so the outputs need no fill.
+// No library sort, scan or GEMM.
 //
-// Bound on the card: memory. The sort dominates (see bitonic_sort.cuh); the
-// resolve passes read and write a few lanes each.
+// Bound on the card: memory and launches. The sort dominates (see
+// merge_sort.cuh); resolve_compact reads each sorted lane about once and
+// writes each output once.
 
-#include "bitonic_sort.cuh"
+#include "merge_sort.cuh"
 
 namespace {
 
 constexpr uint32_t kPut = 1, kDelete = 2, kMerge = 3;
 constexpr int kKeyWords = 6;
 constexpr int kRowThreads = 256;
-constexpr int kScanThreads = 512;
-constexpr int kScanItems = 4;
-constexpr int kScanTile = kScanThreads * kScanItems;
+constexpr int kResolveThreads = 256;
+constexpr int kResolveRows = kResolveThreads * rs::kItems;
 constexpr int kAccLanes = 7;  // 4 limbs, operand, first-base PUT / DELETE
+constexpr int kSegWords = 2 + kAccLanes;
 
 struct Layout {
   int n, num_lanes, num_keys, key_words, val_words;
@@ -42,121 +52,173 @@ struct Layout {
   int slo_pos, vt_pos, vlen_pos, vw_pos;
 };
 
-struct SumOp {
-  static __device__ __forceinline__ uint32_t identity() { return 0u; }
-  static __device__ __forceinline__ uint32_t apply(uint32_t a, uint32_t b) {
-    return a + b;
-  }
+struct Outputs {
+  uint32_t *kw_be, *kw_le, *key_len, *seq_hi, *seq_lo, *vtype, *val_words,
+      *val_len;
 };
 
-struct MaxOp {
-  static __device__ __forceinline__ uint32_t identity() { return 0u; }
-  static __device__ __forceinline__ uint32_t apply(uint32_t a, uint32_t b) {
-    return a > b ? a : b;
-  }
+// Summary of a run of rows for the segment open at its end. flags bit 0: a
+// segment starts in the run; bit 1: that segment's first PUT/DELETE was
+// seen (later rows add nothing). An all-zero Seg is the identity.
+struct Seg {
+  uint32_t flags, start;
+  uint32_t s[kAccLanes];
 };
 
-// Exclusive block scan of one value per thread; *total gets the block's
-// reduction. `warp_sums` is 32 words of shared memory.
-template <class Op>
-__device__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* warp_sums,
-                                         uint32_t* total) {
+__device__ __forceinline__ Seg combine(const Seg& a, const Seg& b) {
+  Seg r;
+  r.start = a.start > b.start ? a.start : b.start;
+  r.flags = (a.flags | b.flags) & 1u;
+  if (b.flags & 1u) {
+    r.flags |= b.flags & 2u;
+#pragma unroll
+    for (int q = 0; q < kAccLanes; ++q) r.s[q] = b.s[q];
+  } else if (a.flags & 2u) {
+    r.flags |= 2u;
+#pragma unroll
+    for (int q = 0; q < kAccLanes; ++q) r.s[q] = a.s[q];
+  } else {
+    r.flags |= b.flags & 2u;
+#pragma unroll
+    for (int q = 0; q < kAccLanes; ++q) r.s[q] = a.s[q] + b.s[q];
+  }
+  return r;
+}
+
+__device__ __forceinline__ uint32_t combine(uint32_t a, uint32_t b) {
+  return a + b;
+}
+
+__device__ __forceinline__ Seg shfl_up(const Seg& v, int o) {
+  Seg r;
+  r.flags = __shfl_up_sync(0xffffffffu, v.flags, o);
+  r.start = __shfl_up_sync(0xffffffffu, v.start, o);
+#pragma unroll
+  for (int q = 0; q < kAccLanes; ++q)
+    r.s[q] = __shfl_up_sync(0xffffffffu, v.s[q], o);
+  return r;
+}
+
+__device__ __forceinline__ uint32_t shfl_up(uint32_t v, int o) {
+  return __shfl_up_sync(0xffffffffu, v, o);
+}
+
+__device__ __forceinline__ Seg shfl_idx(const Seg& v, int src) {
+  Seg r;
+  r.flags = __shfl_sync(0xffffffffu, v.flags, src);
+  r.start = __shfl_sync(0xffffffffu, v.start, src);
+#pragma unroll
+  for (int q = 0; q < kAccLanes; ++q)
+    r.s[q] = __shfl_sync(0xffffffffu, v.s[q], src);
+  return r;
+}
+
+__device__ __forceinline__ uint32_t shfl_idx(uint32_t v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+
+// Look-back values bypass L1, which is not coherent across SMs.
+__device__ __forceinline__ Seg load_cg(const Seg* p) {
+  Seg r;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
+  r.flags = __ldcg(w);
+  r.start = __ldcg(w + 1);
+#pragma unroll
+  for (int q = 0; q < kAccLanes; ++q) r.s[q] = __ldcg(w + 2 + q);
+  return r;
+}
+
+__device__ __forceinline__ uint32_t load_cg(const uint32_t* p) {
+  return __ldcg(p);
+}
+
+__device__ __forceinline__ void store_cg(Seg* p, const Seg& v) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(p);
+  __stcg(w, v.flags);
+  __stcg(w + 1, v.start);
+#pragma unroll
+  for (int q = 0; q < kAccLanes; ++q) __stcg(w + 2 + q, v.s[q]);
+}
+
+__device__ __forceinline__ void store_cg(uint32_t* p, uint32_t v) {
+  __stcg(p, v);
+}
+
+// Exclusive scan of one value per thread over the block; *total gets the
+// block's reduction. `tot` is 33 entries of shared memory.
+template <class T>
+__device__ T block_exclusive_scan(T v, T* tot, T* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  uint32_t incl = v;
+  T incl = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl = Op::apply(y, incl);
+    const T y = shfl_up(incl, o);
+    if (lane >= o) incl = combine(y, incl);
   }
-  uint32_t excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = Op::identity();
-  if (lane == 31) warp_sums[warp] = incl;
+  T excl = shfl_up(incl, 1);
+  if (lane == 0) excl = T{};
+  if (lane == 31) tot[warp] = incl;
   __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < nwarps ? warp_sums[lane] : Op::identity();
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w = Op::apply(y, w);
+  if (threadIdx.x == 0) {
+    T run{};
+    for (int w = 0; w < nwarps; ++w) {
+      const T x = tot[w];
+      tot[w] = run;
+      run = combine(run, x);
     }
-    warp_sums[lane] = w;
+    tot[32] = run;
   }
   __syncthreads();
-  if (warp > 0) excl = Op::apply(warp_sums[warp - 1], excl);
-  *total = warp_sums[nwarps - 1];
+  excl = combine(tot[warp], excl);
+  *total = tot[32];
   __syncthreads();
   return excl;
 }
 
-// Level 1: inclusive scan inside each tile of kScanTile rows, per lane
-// (blockIdx.y); the tile's total goes to tiles[lane * ntiles + tile].
-template <class Op>
-__global__ void scan_tiles(uint32_t* data, uint32_t* tiles, int n,
-                           int ntiles) {
-  __shared__ uint32_t warp_sums[32];
-  uint32_t* p = data + (int64_t)blockIdx.y * n;
-  const int64_t base =
-      (int64_t)blockIdx.x * kScanTile + (int64_t)threadIdx.x * kScanItems;
-  uint32_t x[kScanItems];
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k)
-    x[k] = base + k < n ? p[base + k] : Op::identity();
-#pragma unroll
-  for (int k = 1; k < kScanItems; ++k) x[k] = Op::apply(x[k - 1], x[k]);
-  uint32_t total;
-  const uint32_t excl =
-      block_exclusive_scan<Op>(x[kScanItems - 1], warp_sums, &total);
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k)
-    if (base + k < n) p[base + k] = Op::apply(excl, x[k]);
-  if (threadIdx.x == 0) tiles[(int64_t)blockIdx.y * ntiles + blockIdx.x] = total;
-}
-
-// Level 2: exclusive scan of the tile totals of each lane (one block each).
-template <class Op>
-__global__ void scan_totals(uint32_t* tiles, int ntiles) {
-  __shared__ uint32_t warp_sums[32];
-  uint32_t* p = tiles + (int64_t)blockIdx.x * ntiles;
-  uint32_t carry = Op::identity();
-  for (int c = 0; c < ntiles; c += blockDim.x) {
-    const int t = c + threadIdx.x;
-    const uint32_t v = t < ntiles ? p[t] : Op::identity();
-    uint32_t total;
-    const uint32_t excl = block_exclusive_scan<Op>(v, warp_sums, &total);
-    if (t < ntiles) p[t] = Op::apply(carry, excl);
-    carry = Op::apply(carry, total);
+// Decoupled look-back, by the block's first warp: publishes the tile's
+// aggregate, then reads the flags of the 32 tiles before a window's end at
+// once, folds the window back to its nearest tile that has an inclusive
+// prefix (or moves the window 32 tiles back), publishes its own inclusive
+// prefix and returns the prefix of the tiles before it. flags[t]: 0
+// nothing yet, 1 aggregate, 2 inclusive prefix. Every lane returns it.
+template <class T>
+__device__ T look_back(int tile, const T& agg, volatile uint32_t* flags,
+                       T* aggs, T* incls) {
+  const int lane = threadIdx.x & 31;
+  if (tile > 0 && lane == 0) {
+    store_cg(aggs + tile, agg);
+    __threadfence();
+    flags[tile] = 1u;
   }
-}
-
-// Level 3: fold each tile's prefix into its rows.
-template <class Op>
-__global__ void scan_add(uint32_t* data, const uint32_t* tiles, int n,
-                         int ntiles) {
-  if (blockIdx.x == 0) return;
-  uint32_t* p = data + (int64_t)blockIdx.y * n;
-  const uint32_t prefix = tiles[(int64_t)blockIdx.y * ntiles + blockIdx.x];
-  const int64_t base =
-      (int64_t)blockIdx.x * kScanTile + (int64_t)threadIdx.x * kScanItems;
+  T prefix{};
+  for (int end = tile; end > 0; end -= 32) {
+    const int t = end - 32 + lane;  // lane 31 is the nearest tile
+    uint32_t f = 2u;                // tiles before 0: the identity
+    if (t >= 0) {
+      do {
+        f = flags[t];
+      } while (f == 0u);
+    }
+    __threadfence();
+    T v{};
+    if (t >= 0) v = f == 2u ? load_cg(incls + t) : load_cg(aggs + t);
+    const unsigned done = __ballot_sync(0xffffffffu, f == 2u);
+    if (done && lane < 31 - __clz(done)) v = T{};
 #pragma unroll
-  for (int k = 0; k < kScanItems; ++k)
-    if (base + k < n) p[base + k] = Op::apply(prefix, p[base + k]);
-}
-
-// Inclusive scan of `m` lanes of n rows each, in place.
-template <class Op>
-cudaError_t scan_lanes(uint32_t* data, int m, int n, uint32_t* tiles,
-                       cudaStream_t s) {
-  const int ntiles = (n + kScanTile - 1) / kScanTile;
-  scan_tiles<Op><<<dim3(ntiles, m), kScanThreads, 0, s>>>(data, tiles, n,
-                                                          ntiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_totals<Op><<<m, kScanThreads, 0, s>>>(tiles, ntiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_add<Op><<<dim3(ntiles, m), kScanThreads, 0, s>>>(data, tiles, n,
-                                                        ntiles);
-  return cudaGetLastError();
+    for (int o = 1; o < 32; o <<= 1) {
+      const T y = shfl_up(v, o);
+      if (lane >= o) v = combine(y, v);
+    }
+    prefix = combine(shfl_idx(v, 31), prefix);
+    if (done) break;
+  }
+  if (lane == 0) {
+    store_cg(incls + tile, combine(prefix, agg));
+    __threadfence();
+    flags[tile] = 2u;
+  }
+  return prefix;
 }
 
 __device__ __forceinline__ uint32_t lane_at(const uint32_t* lanes,
@@ -165,44 +227,211 @@ __device__ __forceinline__ uint32_t lane_at(const uint32_t* lanes,
   return lanes[(int64_t)pos * L.n + i];
 }
 
-__device__ __forceinline__ bool row_valid(const uint32_t* lanes,
-                                          const Layout& L, int64_t i) {
-  return lane_at(lanes, L, 0, i) == 0;
+// A thread's kItems consecutive rows, read once with 16-byte loads.
+struct Rows {
+  uint32_t starts;   // bit k: row k starts a key; bit kItems: the next row
+  uint32_t invalid;  // bit k: row k is padding
+  uint32_t vt[rs::kItems], vlen[rs::kItems], lo[rs::kItems], hi[rs::kItems];
+};
+
+__device__ __forceinline__ void load_rows(const uint32_t* p,
+                                          uint32_t (&v)[rs::kItems]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ bool row_is_base(const uint32_t* lanes,
-                                            const Layout& L, int64_t i) {
-  const uint32_t vt = lane_at(lanes, L, L.vt_pos, i);
-  return row_valid(lanes, L, i) && (vt == kPut || vt == kDelete);
+// Rows row0 .. row0 + kItems - 1 (row0 < n, a multiple of kItems). A row
+// starts a key when it is row 0, padding, or its key (words [, length])
+// differs from the row before; the row at n counts as a start.
+__device__ Rows read_rows(const uint32_t* lanes, const Layout& L,
+                          int64_t row0, bool uint64_add) {
+  static_assert(rs::kItems == 8, "read_rows loads two uint4 per lane");
+  Rows R;
+  const int64_t n = L.n;
+  const bool has_next = row0 + rs::kItems < n;
+  uint32_t v[rs::kItems];
+  load_rows(lanes + row0, v);
+  R.invalid = 0u;
+#pragma unroll
+  for (int k = 0; k < rs::kItems; ++k) R.invalid |= (uint32_t)(v[k] != 0u) << k;
+  uint32_t starts = R.invalid | (row0 == 0 ? 1u : 0u);
+  if (!has_next || lanes[row0 + rs::kItems] != 0u) starts |= 1u << rs::kItems;
+  // key word lanes, then the length lane when it is kept: lanes 1 ..
+  const int key_lanes = L.key_words + (L.klen_pos >= 0 ? 1 : 0);
+  for (int w = 0; w < key_lanes; ++w) {
+    const uint32_t* p = lanes + (int64_t)(1 + w) * n;
+    load_rows(p + row0, v);
+    const uint32_t prev = row0 > 0 ? p[row0 - 1] : v[0];
+    uint32_t diff = (uint32_t)(v[0] != prev);
+#pragma unroll
+    for (int k = 1; k < rs::kItems; ++k)
+      diff |= (uint32_t)(v[k] != v[k - 1]) << k;
+    if (has_next)
+      diff |= (uint32_t)(p[row0 + rs::kItems] != v[rs::kItems - 1])
+              << rs::kItems;
+    starts |= diff;
+  }
+  R.starts = starts;
+  if (uint64_add) {
+    load_rows(lanes + (int64_t)L.vt_pos * n + row0, R.vt);
+    load_rows(lanes + (int64_t)L.vlen_pos * n + row0, R.vlen);
+    load_rows(lanes + (int64_t)L.vw_pos * n + row0, R.lo);
+    if (L.val_words > 1) {
+      load_rows(lanes + (int64_t)(L.vw_pos + 1) * n + row0, R.hi);
+    } else {
+#pragma unroll
+      for (int k = 0; k < rs::kItems; ++k) R.hi[k] = 0u;
+    }
+  }
+  return R;
 }
 
-// new_key: row 0, an invalid row, or a key (words [, length]) differing
-// from the previous row's.
-__device__ bool row_new_key(const uint32_t* lanes, const Layout& L,
-                            int64_t i) {
-  if (i == 0 || !row_valid(lanes, L, i)) return true;
-  for (int w = 0; w < L.key_words; ++w)
-    if (lane_at(lanes, L, 1 + w, i) != lane_at(lanes, L, 1 + w, i - 1))
-      return true;
-  return L.klen_pos >= 0 && lane_at(lanes, L, L.klen_pos, i) !=
-                                lane_at(lanes, L, L.klen_pos, i - 1);
+// The scan element of row row0 + k.
+__device__ __forceinline__ Seg row_elem(const Rows& R, int k, int64_t row0,
+                                        bool uint64_add) {
+  Seg e{};
+  const bool new_key = (R.starts >> k) & 1u;
+  e.flags = new_key ? 1u : 0u;
+  e.start = new_key ? (uint32_t)(row0 + k) : 0u;
+  if ((R.invalid >> k) & 1u) {
+    e.flags |= 2u;
+    return e;
+  }
+  if (!uint64_add) return e;
+  const uint32_t vt = R.vt[k];
+  bool limbs = false;
+  if (vt == kMerge) {
+    e.s[4] = 1u;
+    limbs = true;
+  } else if (vt == kPut) {
+    e.flags |= 2u;
+    e.s[5] = 1u;
+    limbs = true;
+  } else if (vt == kDelete) {
+    e.flags |= 2u;
+    e.s[6] = 1u;
+  }
+  // values whose length is not exactly 8 parse as 0
+  if (limbs && R.vlen[k] == 8u) {
+    e.s[0] = R.lo[k] & 0xFFFFu;
+    e.s[1] = R.lo[k] >> 16;
+    e.s[2] = R.hi[k] & 0xFFFFu;
+    e.s[3] = R.hi[k] >> 16;
+  }
+  return e;
 }
 
-__global__ void build_lanes(const uint32_t* __restrict__ kw_be,
-                            const uint32_t* __restrict__ key_len,
-                            const uint32_t* __restrict__ seq_hi,
-                            const uint32_t* __restrict__ seq_lo,
-                            const uint32_t* __restrict__ vtype,
-                            const uint32_t* __restrict__ val_words,
-                            const uint32_t* __restrict__ val_len,
-                            const uint8_t* __restrict__ valid, Layout L,
-                            uint32_t* __restrict__ lanes,
-                            uint32_t* __restrict__ meta) {
+struct Decision {
+  bool keep, folded;
+  uint32_t vt, lo, hi;
+};
+
+// Resolve the segment [st.start, e] of valid rows from its totals.
+__device__ Decision decide(const uint32_t* lanes, const Layout& L,
+                           const Seg& st, bool uint64_add,
+                           bool drop_tombstones) {
+  Decision d;
+  const uint32_t vt = lane_at(lanes, L, L.vt_pos, st.start);
+  d.vt = vt;
+  d.folded = false;
+  d.lo = d.hi = 0u;
+  if (!uint64_add) {
+    d.keep = !(drop_tombstones && vt == kDelete);
+    return d;
+  }
+  const bool has_ops = st.s[4] > 0, base_put = st.s[5] > 0,
+             base_del = st.s[6] > 0;
+  if (has_ops) {
+    // four u32 limb sums -> (lo, hi) with carries; beyond 64 bits wraps
+    const uint32_t l0 = st.s[0] & 0xFFFFu, c0 = st.s[0] >> 16;
+    const uint32_t s1 = st.s[1] + c0, l1 = s1 & 0xFFFFu, c1 = s1 >> 16;
+    const uint32_t s2 = st.s[2] + c1, l2 = s2 & 0xFFFFu, c2 = s2 >> 16;
+    const uint32_t l3 = (st.s[3] + c2) & 0xFFFFu;
+    d.folded = true;
+    d.lo = l0 | (l1 << 16);
+    d.hi = l2 | (l3 << 16);
+  }
+  const bool pure = has_ops && !base_put && !base_del;
+  const bool resolved_put = base_put || (has_ops && base_del);
+  d.vt = (resolved_put || (pure && drop_tombstones)) ? kPut
+         : pure                                      ? kMerge
+                                                     : vt;
+  const bool dropped = base_del && !has_ops;
+  d.keep = !(drop_tombstones && dropped);
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bswap32(uint32_t w) {
+  return __byte_perm(w, 0, 0x0123);
+}
+
+// Output row p: the segment's representative row s, resolved. Every word
+// of row s is loaded before the first store.
+__device__ void write_row(const uint32_t* lanes, const Layout& L,
+                          const Outputs& o, const uint32_t* meta, int64_t p,
+                          uint32_t s, const Decision& d) {
+  uint32_t kw[kKeyWords], vw[rs::kMaxLanes];
+#pragma unroll
+  for (int w = 0; w < kKeyWords; ++w)
+    kw[w] = w < L.key_words ? __ldg(lanes + (int64_t)(1 + w) * L.n + s) : 0u;
+#pragma unroll
+  for (int w = 0; w < rs::kMaxLanes; ++w)
+    if (w < L.val_words)
+      vw[w] = __ldg(lanes + (int64_t)(L.vw_pos + w) * L.n + s);
+  const uint32_t klen =
+      L.klen_pos >= 0 ? __ldg(lanes + (int64_t)L.klen_pos * L.n + s)
+                      : meta[2];
+  const uint32_t shi =
+      L.shi_pos >= 0 ? ~__ldg(lanes + (int64_t)L.shi_pos * L.n + s) : 0u;
+  const uint32_t slo = ~__ldg(lanes + (int64_t)L.slo_pos * L.n + s);
+  const uint32_t vlen =
+      d.folded ? 8u : __ldg(lanes + (int64_t)L.vlen_pos * L.n + s);
+  if (d.folded) {
+    vw[0] = d.lo;
+    if (L.val_words > 1) vw[1] = d.hi;
+  }
+#pragma unroll
+  for (int w = 0; w < kKeyWords; ++w) {
+    o.kw_be[p * kKeyWords + w] = kw[w];
+    o.kw_le[p * kKeyWords + w] = bswap32(kw[w]);
+  }
+  o.key_len[p] = klen;
+  o.seq_hi[p] = shi;
+  o.seq_lo[p] = slo;
+  o.vtype[p] = d.vt;
+  o.val_len[p] = vlen;
+#pragma unroll
+  for (int w = 0; w < rs::kMaxLanes; ++w)
+    if (w < L.val_words) o.val_words[p * L.val_words + w] = vw[w];
+}
+
+// Zeroes rows [lo, hi) of every output, each array as one flat range of
+// words, so that neighbouring threads store to neighbouring words.
+__device__ void zero_rows(const Layout& L, const Outputs& o, int64_t lo,
+                          int64_t hi) {
+  uint32_t* const arrays[8] = {o.kw_be, o.kw_le, o.key_len, o.seq_hi,
+                               o.seq_lo, o.vtype, o.val_words, o.val_len};
+  const int widths[8] = {kKeyWords, kKeyWords, 1, 1, 1, 1, L.val_words, 1};
+  for (int a = 0; a < 8; ++a)
+    for (int64_t i = lo * widths[a] + threadIdx.x; i < hi * widths[a];
+         i += blockDim.x)
+      arrays[a][i] = 0u;
+}
+
+__global__ void build_keys(const uint32_t* __restrict__ kw_be,
+                           const uint32_t* __restrict__ key_len,
+                           const uint32_t* __restrict__ seq_hi,
+                           const uint32_t* __restrict__ seq_lo,
+                           const uint8_t* __restrict__ valid, Layout L,
+                           uint32_t* __restrict__ keys,
+                           uint32_t* __restrict__ meta) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t kl = 0;
   if (i < L.n) {
     const bool v = valid[i] != 0;
-    uint32_t* out = lanes + i;
+    uint32_t* out = keys + i;
     const int64_t n = L.n;
     out[0] = v ? 0u : 1u;
     for (int w = 0; w < L.key_words; ++w)
@@ -210,147 +439,98 @@ __global__ void build_lanes(const uint32_t* __restrict__ kw_be,
     if (L.klen_pos >= 0) out[L.klen_pos * n] = key_len[i];
     if (L.shi_pos >= 0) out[L.shi_pos * n] = ~seq_hi[i];
     out[L.slo_pos * n] = ~seq_lo[i];
-    out[L.vt_pos * n] = vtype[i];
-    out[L.vlen_pos * n] = val_len[i];
-    for (int w = 0; w < L.val_words; ++w)
-      out[(L.vw_pos + w) * n] = val_words[i * L.val_words + w];
     kl = v ? key_len[i] : 0u;
   }
   kl = __reduce_max_sync(0xffffffffu, kl);
   if ((threadIdx.x & 31) == 0 && kl) atomicMax(meta + 2, kl);
 }
 
-__global__ void boundaries(const uint32_t* __restrict__ lanes, Layout L,
-                           uint32_t* __restrict__ flags,
-                           uint32_t* __restrict__ start,
-                           uint32_t* __restrict__ base) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L.n) return;
-  const bool nk = row_new_key(lanes, L, i);
-  const bool lk = i == L.n - 1 || row_new_key(lanes, L, i + 1);
-  flags[i] = (nk ? 1u : 0u) | (lk ? 2u : 0u);
-  start[i] = nk ? (uint32_t)i : 0u;
-  base[i] = row_is_base(lanes, L, i) ? 1u : 0u;
-}
-
-// Per row: operand / first-base flags and the contributing limbs; each
-// segment's last row records its index at the segment's start.
-__global__ void limbs(const uint32_t* __restrict__ lanes, Layout L,
-                      const uint32_t* __restrict__ flags,
-                      const uint32_t* __restrict__ start,
-                      const uint32_t* __restrict__ base_incl,
-                      uint32_t* __restrict__ acc,
-                      uint32_t* __restrict__ endof) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L.n) return;
+// Status words at the head of the scratch: meta[4] (count, overflow flag,
+// uniform key length, unused), the tile counter, padding, then the two
+// look-back flag arrays. The memset zeroes exactly these.
+__global__ void __launch_bounds__(kResolveThreads)
+    resolve_compact(const uint32_t* __restrict__ lanes, Layout L,
+                    uint32_t* status, int ntiles, Seg* seg_aggs,
+                    Seg* seg_incls, uint32_t* keep_aggs,
+                    uint32_t* keep_incls, int uint64_add,
+                    int drop_tombstones, Outputs o) {
+  __shared__ Seg seg_tot[33];
+  __shared__ uint32_t keep_tot[33];
+  __shared__ Seg seg_prefix;
+  __shared__ uint32_t keep_prefix;
+  __shared__ int tile_s;
+  uint32_t* meta = status;
+  volatile uint32_t* seg_flags = status + 8;
+  volatile uint32_t* keep_flags = seg_flags + ntiles;
+  const int tid = threadIdx.x;
+  if (tid == 0) tile_s = (int)atomicAdd(status + 4, 1u);
+  __syncthreads();
+  const int tile = tile_s;
   const int64_t n = L.n;
-  const uint32_t s = start[i];
-  const bool valid = row_valid(lanes, L, i);
-  const uint32_t vt = lane_at(lanes, L, L.vt_pos, i);
-  const bool is_base = row_is_base(lanes, L, i);
-  const uint32_t base_before = (base_incl[i] - (is_base ? 1u : 0u)) -
-                               (base_incl[s] - (row_is_base(lanes, L, s) ? 1u : 0u));
-  const bool is_put = valid && vt == kPut;
-  const bool is_del = valid && vt == kDelete;
-  const bool operand = valid && vt == kMerge && base_before == 0;
-  const bool first_base = is_base && base_before == 0;
-  const bool contrib = (operand || (first_base && is_put)) &&
-                       lane_at(lanes, L, L.vlen_pos, i) == 8u;
-  const uint32_t lo = lane_at(lanes, L, L.vw_pos, i);
-  const uint32_t hi = L.val_words > 1 ? lane_at(lanes, L, L.vw_pos + 1, i) : 0u;
-  acc[0 * n + i] = contrib ? (lo & 0xFFFFu) : 0u;
-  acc[1 * n + i] = contrib ? (lo >> 16) : 0u;
-  acc[2 * n + i] = contrib ? (hi & 0xFFFFu) : 0u;
-  acc[3 * n + i] = contrib ? (hi >> 16) : 0u;
-  acc[4 * n + i] = operand ? 1u : 0u;
-  acc[5 * n + i] = (first_base && is_put) ? 1u : 0u;
-  acc[6 * n + i] = (first_base && is_del) ? 1u : 0u;
-  if (flags[i] & 2u) endof[s] = (uint32_t)i;
-}
+  const int64_t tile0 = (int64_t)tile * kResolveRows;
+  const int64_t row0 = tile0 + (int64_t)tid * rs::kItems;
+  const bool add = uint64_add != 0, drop = drop_tombstones != 0;
 
-// Resolve each segment at its representative (first, newest) row: the
-// resolved vtype / value are written into the sorted lanes in place, and
-// keep marks the rows that survive.
-__global__ void resolve(uint32_t* __restrict__ lanes, Layout L,
-                        const uint32_t* __restrict__ flags,
-                        const uint32_t* __restrict__ acc,
-                        const uint32_t* __restrict__ endof,
-                        uint32_t* __restrict__ keep,
-                        uint32_t* __restrict__ meta, int uint64_add,
-                        int drop_tombstones) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L.n) return;
-  const int64_t n = L.n;
-  if (!((flags[i] & 1u) && row_valid(lanes, L, i))) {
-    keep[i] = 0u;
-    return;
-  }
-  uint32_t* vt_lane = lanes + (int64_t)L.vt_pos * n;
-  const uint32_t vt = vt_lane[i];
-  if (!uint64_add) {
-    keep[i] = (drop_tombstones && vt == kDelete) ? 0u : 1u;
-    return;
-  }
-  const uint32_t e = endof[i];
-  uint32_t tot[kAccLanes];
+  const bool active = row0 < n;
+  Rows R;
+  Seg agg{};
+  if (active) {
+    R = read_rows(lanes, L, row0, add);
 #pragma unroll
-  for (int q = 0; q < kAccLanes; ++q)
-    tot[q] = acc[q * n + e] - (i > 0 ? acc[q * n + i - 1] : 0u);
-  const bool has_ops = tot[4] > 0, base_put = tot[5] > 0, base_del = tot[6] > 0;
-  if (e - (uint32_t)i + 1u >= (1u << 16)) atomicOr(meta + 1, 1u);
-  if (has_ops) {
-    // four u32 limb sums -> (lo, hi) with carries; beyond 64 bits wraps
-    const uint32_t l0 = tot[0] & 0xFFFFu, c0 = tot[0] >> 16;
-    const uint32_t s1 = tot[1] + c0, l1 = s1 & 0xFFFFu, c1 = s1 >> 16;
-    const uint32_t s2 = tot[2] + c1, l2 = s2 & 0xFFFFu, c2 = s2 >> 16;
-    const uint32_t l3 = (tot[3] + c2) & 0xFFFFu;
-    lanes[(int64_t)L.vw_pos * n + i] = l0 | (l1 << 16);
-    if (L.val_words > 1) lanes[(int64_t)(L.vw_pos + 1) * n + i] = l2 | (l3 << 16);
-    lanes[(int64_t)L.vlen_pos * n + i] = 8u;
+    for (int k = 0; k < rs::kItems; ++k)
+      agg = combine(agg, row_elem(R, k, row0, add));
   }
-  const bool pure = has_ops && !base_put && !base_del;
-  const bool resolved_put = base_put || (has_ops && base_del);
-  vt_lane[i] = (resolved_put || (pure && drop_tombstones)) ? kPut
-               : pure                                      ? kMerge
-                                                           : vt;
-  const bool dropped = base_del && !has_ops;
-  keep[i] = (drop_tombstones && dropped) ? 0u : 1u;
-}
-
-__device__ __forceinline__ uint32_t bswap32(uint32_t w) {
-  return __byte_perm(w, 0, 0x0123);
-}
-
-// Scatter each kept row to its rank (inclusive keep count - 1).
-__global__ void compact(const uint32_t* __restrict__ lanes, Layout L,
-                        const uint32_t* __restrict__ keep_incl,
-                        uint32_t* __restrict__ meta,
-                        uint32_t* __restrict__ o_kw_be,
-                        uint32_t* __restrict__ o_kw_le,
-                        uint32_t* __restrict__ o_key_len,
-                        uint32_t* __restrict__ o_seq_hi,
-                        uint32_t* __restrict__ o_seq_lo,
-                        uint32_t* __restrict__ o_vtype,
-                        uint32_t* __restrict__ o_val_words,
-                        uint32_t* __restrict__ o_val_len) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L.n) return;
-  const uint32_t incl = keep_incl[i];
-  if (i == L.n - 1) meta[0] = incl;
-  if (incl == (i > 0 ? keep_incl[i - 1] : 0u)) return;
-  const int64_t p = incl - 1;
-  for (int w = 0; w < L.key_words; ++w) {
-    const uint32_t v = lane_at(lanes, L, 1 + w, i);
-    o_kw_be[p * kKeyWords + w] = v;
-    o_kw_le[p * kKeyWords + w] = bswap32(v);
+  Seg seg_total;
+  const Seg seg_excl = block_exclusive_scan(agg, seg_tot, &seg_total);
+  if (tid < 32) {
+    const Seg p = look_back(tile, seg_total, seg_flags, seg_aggs, seg_incls);
+    if (tid == 0) seg_prefix = p;
   }
-  o_key_len[p] = L.klen_pos >= 0 ? lane_at(lanes, L, L.klen_pos, i) : meta[2];
-  o_seq_hi[p] = L.shi_pos >= 0 ? ~lane_at(lanes, L, L.shi_pos, i) : 0u;
-  o_seq_lo[p] = ~lane_at(lanes, L, L.slo_pos, i);
-  o_vtype[p] = lane_at(lanes, L, L.vt_pos, i);
-  o_val_len[p] = lane_at(lanes, L, L.vlen_pos, i);
-  for (int w = 0; w < L.val_words; ++w)
-    o_val_words[p * L.val_words + w] = lane_at(lanes, L, L.vw_pos + w, i);
+  __syncthreads();
+  const Seg run0 = combine(seg_prefix, seg_excl);
+
+  // keep, at each segment's last row
+  uint32_t keep_mask = 0;
+  if (active) {
+    Seg run = run0;
+#pragma unroll
+    for (int k = 0; k < rs::kItems; ++k) {
+      run = combine(run, row_elem(R, k, row0, add));
+      if (!((R.starts >> (k + 1)) & 1u) || ((R.invalid >> k) & 1u))
+        continue;
+      if (add && row0 + k - run.start + 1 >= (1 << 16))
+        atomicOr(meta + 1, 1u);
+      if (decide(lanes, L, run, add, drop).keep) keep_mask |= 1u << k;
+    }
+  }
+  uint32_t tile_kept;
+  const uint32_t keep_excl =
+      block_exclusive_scan((uint32_t)__popc(keep_mask), keep_tot, &tile_kept);
+  if (tid < 32) {
+    const uint32_t p =
+        look_back(tile, tile_kept, keep_flags, keep_aggs, keep_incls);
+    if (tid == 0) keep_prefix = p;
+  }
+  __syncthreads();
+
+  if (keep_mask) {
+    int64_t rank = keep_prefix + keep_excl;
+    Seg run = run0;
+#pragma unroll
+    for (int k = 0; k < rs::kItems; ++k) {
+      run = combine(run, row_elem(R, k, row0, add));
+      if ((keep_mask >> k) & 1u)
+        write_row(lanes, L, o, meta, rank++, run.start,
+                  decide(lanes, L, run, add, drop));
+    }
+  }
+
+  // Rows at or past count: tile t zeroes as many as it has unkept rows,
+  // counted down from the end after the earlier tiles' share.
+  const int64_t rows = n - tile0 < kResolveRows ? n - tile0 : kResolveRows;
+  const int64_t hi = n - (tile0 - keep_prefix);
+  zero_rows(L, o, hi - (rows - tile_kept), hi);
+  if (tile == ntiles - 1 && tid == 0) meta[0] = keep_prefix + tile_kept;
 }
 
 Layout make_layout(int n, int val_words, int key_words, int uniform_klen,
@@ -371,100 +551,106 @@ Layout make_layout(int n, int val_words, int key_words, int uniform_klen,
   return L;
 }
 
-int64_t scratch_words(const Layout& L) {
-  const int64_t ntiles = (L.n + kScanTile - 1) / kScanTile;
-  // lanes, flags, start, base, acc, endof, keep, tile totals
-  return (int64_t)L.n * (L.num_lanes + 5 + kAccLanes) + kAccLanes * ntiles;
-}
+int64_t round4(int64_t w) { return (w + 3) / 4 * 4; }
 
 }  // namespace
 
 extern "C" {
 
 const char* rs_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int rs_fused_scratch_words(int n, int val_words, int key_words,
-                           int uniform_klen, int seq32, int64_t* words) {
-  *words = scratch_words(make_layout(n, val_words, key_words, uniform_klen,
-                                     seq32));
-  return 0;
+  return rs::error_string(err);
 }
 
 // Inputs: kw_be (n, 6), key_len, seq_hi, seq_lo, vtype, val_words
-// (n, val_words), val_len as u32; valid as bytes 0/1. Outputs (zeroed by the
-// caller): the same lanes, kw_le (n, 6) besides; meta[0] = count,
-// meta[1] = overflow flag, meta[2] = uniform key length (zeroed too).
+// (n, val_words), val_len as u32; valid as bytes 0/1. Outputs: the same
+// lanes, kw_le (n, 6) besides, every row written. The sort plan and the
+// scratch size come from the wrapper (ops/fused_resolve.py plan_fused);
+// the scratch layout is: status words (meta[0] = count, meta[1] =
+// overflow flag, meta[2] = uniform key length), look-back values, the
+// sorted lanes, two sort buffers. Adds the CUDA launches it makes
+// (the memset included) to *launches.
 int rs_fused_merge_resolve(
     const void* kw_be, const void* key_len, const void* seq_hi,
     const void* seq_lo, const void* vtype, const void* val_words,
     const void* val_len, const void* valid, int n, int n_val_words,
     int key_words, int uniform_klen, int seq32, int uint64_add,
-    int drop_tombstones, void* o_kw_be, void* o_kw_le, void* o_key_len,
+    int drop_tombstones, int tile, int chunk, int passes, int smem,
+    int64_t scratch_words, void* o_kw_be, void* o_kw_le, void* o_key_len,
     void* o_seq_hi, void* o_seq_lo, void* o_vtype, void* o_val_words,
-    void* o_val_len, void* meta, void* scratch, void* stream) {
+    void* o_val_len, void* scratch, int* launches, void* stream) {
   const Layout L =
       make_layout(n, n_val_words, key_words, uniform_klen, seq32);
-  if (n < 256 || (n & (n - 1)) != 0 || key_words < 1 ||
+  if (n < rs::kMinTile || (n & (n - 1)) != 0 || key_words < 1 ||
       key_words > kKeyWords || n_val_words < 1 ||
       L.num_lanes > rs::kMaxLanes)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return rs::kErrShape;
+  const int ntiles = (n + kResolveRows - 1) / kResolveRows;
+  const int64_t status_words = round4(8 + 2 * (int64_t)ntiles);
+  const int64_t look_words = round4((int64_t)ntiles * 2 * (kSegWords + 1));
+  const int64_t sort_words = 2 * (int64_t)(L.num_keys + 1) * n;
+  if (scratch_words !=
+      status_words + look_words + (int64_t)L.num_lanes * n + sort_words)
+    return rs::kErrScratch;
+  const rs::SortPlan plan{n, L.num_keys, L.num_lanes - L.num_keys, tile,
+                          chunk, passes, smem, sort_words};
+  if (!rs::plan_ok(plan)) return rs::kErrPlan;
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* m = static_cast<uint32_t*>(meta);
-  uint32_t* lanes = static_cast<uint32_t*>(scratch);
-  uint32_t* flags = lanes + (int64_t)L.num_lanes * n;
-  uint32_t* start = flags + n;
-  uint32_t* base = start + n;
-  uint32_t* acc = base + n;
-  uint32_t* endof = acc + (int64_t)kAccLanes * n;
-  uint32_t* keep = endof + n;
-  uint32_t* tiles = keep + n;
-  const int blocks = (n + kRowThreads - 1) / kRowThreads;
+  uint32_t* status = static_cast<uint32_t*>(scratch);
+  Seg* seg_aggs = reinterpret_cast<Seg*>(status + status_words);
+  Seg* seg_incls = seg_aggs + ntiles;
+  uint32_t* keep_aggs = reinterpret_cast<uint32_t*>(seg_incls + ntiles);
+  uint32_t* keep_incls = keep_aggs + ntiles;
+  uint32_t* lanes = status + status_words + look_words;
+  uint32_t* sort_buf = lanes + (int64_t)L.num_lanes * n;
+  uint32_t* keys = sort_buf + (int64_t)(L.num_keys + 1) * n;  // buffer 1
   cudaError_t err;
 
-  build_lanes<<<blocks, kRowThreads, 0, s>>>(
+  if ((err = cudaMemsetAsync(status, 0, status_words * sizeof(uint32_t),
+                             s)) != cudaSuccess)
+    return err;
+  ++*launches;
+
+  build_keys<<<(n + kRowThreads - 1) / kRowThreads, kRowThreads, 0, s>>>(
       static_cast<const uint32_t*>(kw_be),
       static_cast<const uint32_t*>(key_len),
       static_cast<const uint32_t*>(seq_hi),
       static_cast<const uint32_t*>(seq_lo),
-      static_cast<const uint32_t*>(vtype),
-      static_cast<const uint32_t*>(val_words),
-      static_cast<const uint32_t*>(val_len),
-      static_cast<const uint8_t*>(valid), L, lanes, m);
+      static_cast<const uint8_t*>(valid), L, keys, status);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ++*launches;
 
-  if ((err = rs::bitonic_sort_device(lanes, L.num_lanes, L.num_keys, n,
-                                     s)) != cudaSuccess)
-    return err;
-
-  boundaries<<<blocks, kRowThreads, 0, s>>>(lanes, L, flags, start, base);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  if (uint64_add) {
-    if ((err = scan_lanes<MaxOp>(start, 1, n, tiles, s)) != cudaSuccess)
-      return err;
-    if ((err = scan_lanes<SumOp>(base, 1, n, tiles, s)) != cudaSuccess)
-      return err;
-    limbs<<<blocks, kRowThreads, 0, s>>>(lanes, L, flags, start, base, acc,
-                                         endof);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = scan_lanes<SumOp>(acc, kAccLanes, n, tiles, s)) !=
-        cudaSuccess)
-      return err;
+  rs::LaneIn kin{}, payload{};
+  rs::LaneOut out{};
+  for (int l = 0; l < L.num_lanes; ++l) out.p[l] = lanes + (int64_t)l * n;
+  for (int l = 0; l < L.num_keys; ++l) {
+    kin.p[l] = keys + (int64_t)l * n;
+    kin.stride[l] = 1;
   }
-  resolve<<<blocks, kRowThreads, 0, s>>>(lanes, L, flags, acc, endof, keep, m,
-                                         uint64_add, drop_tombstones);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = scan_lanes<SumOp>(keep, 1, n, tiles, s)) != cudaSuccess)
+  payload.p[0] = static_cast<const uint32_t*>(vtype);
+  payload.p[1] = static_cast<const uint32_t*>(val_len);
+  payload.stride[0] = payload.stride[1] = 1;
+  for (int w = 0; w < n_val_words; ++w) {
+    payload.p[2 + w] = static_cast<const uint32_t*>(val_words) + w;
+    payload.stride[2 + w] = n_val_words;
+  }
+  if ((err = rs::merge_sort_device(kin, payload, out, plan, sort_buf, s,
+                                   launches)) != cudaSuccess)
     return err;
-  compact<<<blocks, kRowThreads, 0, s>>>(
-      lanes, L, keep, m, static_cast<uint32_t*>(o_kw_be),
-      static_cast<uint32_t*>(o_kw_le), static_cast<uint32_t*>(o_key_len),
-      static_cast<uint32_t*>(o_seq_hi), static_cast<uint32_t*>(o_seq_lo),
-      static_cast<uint32_t*>(o_vtype), static_cast<uint32_t*>(o_val_words),
-      static_cast<uint32_t*>(o_val_len));
+
+  const Outputs o{static_cast<uint32_t*>(o_kw_be),
+                  static_cast<uint32_t*>(o_kw_le),
+                  static_cast<uint32_t*>(o_key_len),
+                  static_cast<uint32_t*>(o_seq_hi),
+                  static_cast<uint32_t*>(o_seq_lo),
+                  static_cast<uint32_t*>(o_vtype),
+                  static_cast<uint32_t*>(o_val_words),
+                  static_cast<uint32_t*>(o_val_len)};
+  resolve_compact<<<ntiles, kResolveThreads, 0, s>>>(
+      lanes, L, status, ntiles, seg_aggs, seg_incls, keep_aggs, keep_incls,
+      uint64_add, drop_tombstones, o);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ++*launches;
   return 0;
 }
 
