@@ -19,10 +19,22 @@ PyTorch built for CUDA. It
    launch count set to 0 just before and read just after, and compares
    every output with the plain pipeline on the card;
 4. checks a small hand-made batch against known answers;
+4b. drives the engine seam, ``gpu.GpuCompactionBackend``, each path with
+   the launch counts set to 0 just before it and read just after:
+   ``merge_runs`` on the known answers under both sort backends and on
+   two CPU routes that must launch nothing; ``merge_runs_to_files`` on the
+   counter service's compaction job at the single-launch limit (4 planar
+   SST runs of 2^20 entries, DBOptions' defaults), whose output files
+   must equal byte for byte those the same sink writes from
+   ``numpy_merge_resolve``'s output with a host-built bloom (K2 or K1
+   launched, K3 once per file; the host-clock time split by stage); and
+   ``gpu.chunked.chunked_merge`` over 8 runs of 2^20 entries against
+   ``numpy_merge_resolve``;
 5. times each kernel and each forward (median of CUDA-event timed runs
    after warm-up: 10 at the 2^22 shape, 50 at the host-bound small shapes,
    whose medians move most from call to call) beside its plain version and
-   its memory bound, K1 and K2 at 2^17 and 2^22, both over the sort tiles
+   its memory bound, and each kernel's device time per call from
+   torch.profiler, K1 and K2 at 2^17 and 2^22, both over the sort tiles
    the plan could choose, and profiles 8 bench-shard forwards.
 
 Every phase raises on failure and the script then exits non-zero. Without
@@ -33,10 +45,12 @@ result. The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -45,6 +59,10 @@ BIG_N = 1 << 22
 DEVICE = "cuda"
 REPS = 10
 SHORT_REPS = 50  # host-bound shapes (< ~10 ms a call)
+# the engine seam: runs of 2^20 entries, four of which fill one launch
+# (the backend's MAX_LAUNCH_ENTRIES), and DBOptions' target_file_bytes
+SEAM_RUN_ENTRIES = 1 << 20
+SEAM_TARGET_FILE_BYTES = 64 << 20
 
 
 def emit(obj) -> None:
@@ -75,6 +93,26 @@ def time_ms(fn, reps: int = REPS, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 5):
+    """Device time of one call of ``fn``: the time of every CUDA kernel,
+    memset and copy torch.profiler records over ``calls`` calls after a
+    warm-up, divided by ``calls``; None when it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / calls / 1e3 if total_us else None
 
 
 def max_abs_err(a, b) -> int:
@@ -174,6 +212,292 @@ def profile_shards(shards, forward_ms: float) -> dict:
             "device_idle_share_event": 1 - busy_per_forward_ms / forward_ms,
             "groups_us": groups,
             "top_kernels_us": [[n[:80], t] for n, t in top]}
+
+
+def counter_runs(n_runs: int, run_entries: int, key_space: int, seed: int):
+    """Lanes of ``n_runs`` sorted runs of the counter service's traffic:
+    ``run_entries`` distinct 16-byte keys each ("counter:" + a big-endian
+    id below ``key_space``), 60% MERGE / 30% PUT / 10% DELETE, 8-byte
+    little-endian values, and disjoint seq ranges, newer runs later (the
+    engine's run invariant)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    runs = []
+    for r in range(n_runs):
+        n = run_entries
+        ids = np.sort(rng.choice(key_space, n, replace=False)).astype(
+            np.uint64)
+        kw_be = np.zeros((n, 6), dtype=np.uint32)
+        kw_be[:, 0], kw_be[:, 1] = 0x636F756E, 0x7465723A  # b"counter:"
+        kw_be[:, 2] = (ids >> np.uint64(32)).astype(np.uint32)
+        kw_be[:, 3] = (ids & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        vtype = rng.choice(np.array([3, 1, 2], dtype=np.uint32), n,
+                           p=[0.6, 0.3, 0.1])
+        vals = np.where(vtype == 3, rng.integers(0, 1000, n),
+                        rng.integers(0, 1 << 40, n)).astype(np.int64)
+        vals[vtype == 2] = 0
+        runs.append({
+            "key_words_be": kw_be,
+            "key_words_le": kw_be.byteswap(),
+            "key_len": np.full(n, 16, dtype=np.uint32),
+            "seq_hi": np.zeros(n, dtype=np.uint32),
+            "seq_lo": (r * n + 1 + rng.permutation(n)).astype(np.uint32),
+            "vtype": vtype,
+            "val_words": np.stack([vals & 0xFFFFFFFF, vals >> 32],
+                                  axis=1).astype(np.uint32),
+            "val_len": np.where(vtype == 2, 0, 8).astype(np.uint32),
+        })
+    return runs
+
+
+def _kv_batch(lanes: dict):
+    import numpy as np
+
+    from rocksplicator_tpu_torch.ops.kv_format import KVBatch
+
+    n = lanes["key_len"].shape[0]
+    return KVBatch(valid=np.ones(n, dtype=bool), val_bytes=8, **lanes)
+
+
+def _concat_lanes(runs) -> dict:
+    import numpy as np
+
+    return {f: np.concatenate([r[f] for r in runs]) for f in runs[0]}
+
+
+def _sort_flag(flag) -> None:
+    """Pick the deployment sort backend the engine seam reads (None: the
+    default)."""
+    import os
+
+    from rocksplicator_tpu_torch.ops.compaction_kernel import (
+        SORT_BACKEND_ENV)
+
+    if flag is None:
+        os.environ.pop(SORT_BACKEND_ENV, None)
+    else:
+        os.environ[SORT_BACKEND_ENV] = flag
+
+
+SEAM_FLAGS = {"fused": "pallas_fused", "bitonic": "pallas"}
+
+
+def engine_seam_known_answers(dev, entries, expect) -> dict:
+    """GpuCompactionBackend.merge_runs on the hand-made entries under both
+    sort backends, then on the two CPU routes (a 32-byte key, MERGE
+    without an operator), which must launch no kernel."""
+    import torch
+
+    from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.records import OpType
+
+    pk = struct.Struct("<q").pack
+    backend = GpuCompactionBackend(device=dev)
+    launches = {}
+    for name, flag in SEAM_FLAGS.items():
+        _sort_flag(flag)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = [(k, vt, v) for k, _s, vt, v in backend.merge_runs(
+            [entries[0::2], entries[1::2]], UInt64AddOperator(), True)]
+        launches[name] = dict(_build.LAUNCHES)
+        if got != expect:
+            raise AssertionError(f"engine seam known answers [{name}]: {got}")
+    if not (launches["fused"]["fused_resolve"] >= 1
+            and launches["bitonic"]["bitonic_sort"] >= 1):
+        raise AssertionError(f"engine seam known answers: {launches}")
+    long_key = b"k" * 32
+    cpu_routes = {
+        "key_over_24_bytes": (
+            [[(long_key, 2, OpType.MERGE, pk(2))],
+             [(long_key, 1, OpType.PUT, pk(1))]], UInt64AddOperator(),
+            [(long_key, OpType.PUT, pk(3))]),
+        "merge_without_operator": (
+            [[(b"m", 2, OpType.MERGE, b"b"), (b"p", 4, OpType.MERGE, b"d")],
+             [(b"m", 1, OpType.PUT, b"a"), (b"p", 3, OpType.MERGE, b"c")]],
+            None, [(b"m", OpType.PUT, b"a"), (b"p", OpType.MERGE, b"d"),
+                   (b"p", OpType.MERGE, b"c")]),
+    }
+    for route, (runs, op, want) in cpu_routes.items():
+        _build.reset_launches()
+        got = [(k, vt, v) for k, _s, vt, v in backend.merge_runs(
+            runs, op, True)]
+        if got != want:
+            raise AssertionError(f"engine seam CPU route {route}: {got}")
+        if any(_build.LAUNCHES.values()):
+            raise AssertionError(f"engine seam CPU route {route} launched "
+                                 f"{_build.LAUNCHES}")
+    return {"launches": launches, "cpu_routes": sorted(cpu_routes)}
+
+
+def engine_seam_job(dev, work_dir: str, card: str) -> dict:
+    """The counter service's compaction job at the single-launch limit:
+    4 runs of 2^20 entries written as planar SST files, merged by
+    GpuCompactionBackend.merge_runs_to_files under both sort backends at
+    DBOptions' defaults. Every output file must equal, byte for byte, the
+    file the same sink writes from numpy_merge_resolve's output with a
+    host-built bloom."""
+    import os
+
+    import torch
+
+    from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+    from rocksplicator_tpu_torch.gpu.backend import numpy_merge_resolve
+    from rocksplicator_tpu_torch.gpu.format import (planar_stride,
+                                                    write_sst_from_arrays)
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.sst import (COMPRESSION_ZLIB,
+                                                     SSTReader)
+
+    block_bytes, bits_per_key = 32 * 1024, 10
+    target = SEAM_TARGET_FILE_BYTES
+    block_entries = block_bytes // planar_stride(16, 8)
+    n_in = 4 * SEAM_RUN_ENTRIES
+    t0 = time.time()
+    # a key space as large as the job: about 68% of the keys are distinct
+    # and most of those survive, more than one output file holds
+    runs = counter_runs(4, SEAM_RUN_ENTRIES, n_in, seed=42)
+    inputs = []
+    for r, lanes in enumerate(runs):
+        path = os.path.join(work_dir, f"in{r}.tsst")
+        write_sst_from_arrays(lanes, lanes["key_len"].shape[0], path,
+                              block_entries=block_entries,
+                              compression=COMPRESSION_ZLIB,
+                              bits_per_key=bits_per_key, planar=True)
+        inputs.append(path)
+    write_inputs_s = time.time() - t0
+
+    t0 = time.time()
+    out, count = numpy_merge_resolve(_kv_batch(_concat_lanes(runs)), True,
+                                     True)
+    fields = ("key_words_be", "key_len", "seq_hi", "seq_lo", "vtype",
+              "val_words", "val_len")
+    want = dict(zip(fields, out))
+    per_file = max(1024, target // planar_stride(16, 8))
+    want_files = []
+    for i, start in enumerate(range(0, count, per_file)):
+        end = min(start + per_file, count)
+        path = os.path.join(work_dir, f"want{i}.tsst")
+        write_sst_from_arrays({f: a[start:end] for f, a in want.items()},
+                              end - start, path,
+                              block_entries=block_entries,
+                              compression=COMPRESSION_ZLIB,
+                              bits_per_key=bits_per_key, planar=True)
+        want_files.append(path)
+    reference_s = time.time() - t0
+    if len(want_files) < 2:
+        raise AssertionError(f"engine seam job: {count} entries fit one file")
+
+    report = {"entries_in": n_in, "runs": 4, "entries_out": count,
+              "files": len(want_files), "block_entries": block_entries,
+              "write_inputs_s": write_inputs_s,
+              "numpy_reference_s": reference_s, "backends": {}}
+    launches = {}
+    for name, flag in SEAM_FLAGS.items():
+        _sort_flag(flag)
+        readers = [SSTReader(p) for p in inputs]
+        made = []
+
+        def path_factory():
+            made.append(os.path.join(work_dir, f"{name}{len(made)}.tsst"))
+            return made[-1]
+
+        backend = GpuCompactionBackend(device=dev)
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.time()
+            outs = backend.merge_runs_to_files(
+                readers, UInt64AddOperator(), True, path_factory,
+                block_bytes, COMPRESSION_ZLIB, bits_per_key, target)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            launches[name] = dict(_build.LAUNCHES)
+        finally:
+            for r in readers:
+                r.close()
+        if outs is None or [p for p, _ in outs] != made:
+            raise AssertionError(f"engine seam job [{name}]: sink declined "
+                                 f"({outs})")
+        for (path, props), ref in zip(outs, want_files):
+            with open(path, "rb") as a, open(ref, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"engine seam job [{name}]: {path} "
+                                         f"differs from {ref}")
+        if len(outs) != len(want_files) or sum(
+                p["num_entries"] for _, p in outs) != count:
+            raise AssertionError(f"engine seam job [{name}]: {len(outs)} "
+                                 f"files, want {len(want_files)}")
+        merge_kernel = "fused_resolve" if name == "fused" else "bitonic_sort"
+        if (launches[name][merge_kernel] < 1
+                or launches[name]["bloom_build"] != len(outs)):
+            raise AssertionError(f"engine seam job [{name}]: launches "
+                                 f"{launches[name]}")
+        for path in made:
+            os.remove(path)
+        report["backends"][name] = {
+            "launches": launches[name], "seconds": seconds,
+            "entries_per_s": n_in / seconds,
+            "stage_seconds": backend.last_stage_seconds,
+            "identical_files": len(outs)}
+    return {"card": card, **report}, launches
+
+
+def engine_seam_chunked(dev, card: str) -> tuple:
+    """gpu.chunked.chunked_merge over 8 runs of 2^20 entries at the
+    backend's shapes (chunks of 2^20, launches of 2^22), against
+    numpy_merge_resolve over the concatenation."""
+    import numpy as np
+    import torch
+
+    from rocksplicator_tpu_torch.gpu import backend as gpu_backend
+    from rocksplicator_tpu_torch.gpu.backend import numpy_merge_resolve
+    from rocksplicator_tpu_torch.gpu.chunked import chunked_merge
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.ops.compaction_kernel import MergeKind
+
+    # a key space of two runs: four runs' summary fits half a launch, so
+    # the two folds of four runs each meet in one last launch
+    runs = counter_runs(8, SEAM_RUN_ENTRIES, 2 * SEAM_RUN_ENTRIES, seed=43)
+    batches = [_kv_batch(r) for r in runs]
+    _sort_flag(SEAM_FLAGS["fused"])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    result = chunked_merge(batches, MergeKind.UINT64_ADD, True,
+                           chunk_entries=gpu_backend.MAX_LAUNCH_ENTRIES // 4,
+                           launch_entries=gpu_backend.MAX_LAUNCH_ENTRIES,
+                           device=dev)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    if result is None:
+        raise AssertionError("engine seam chunked: no result")
+    got, count = result
+    t0 = time.time()
+    want, want_count = numpy_merge_resolve(_kv_batch(_concat_lanes(runs)),
+                                           True, True)
+    reference_s = time.time() - t0
+    if count != want_count:
+        raise AssertionError(f"engine seam chunked: {count} entries, want "
+                             f"{want_count}")
+    fields = ("key_words_be", "key_len", "seq_hi", "seq_lo", "vtype",
+              "val_words", "val_len")
+    for f, w in zip(fields, want):
+        if not np.array_equal(got[f], w):
+            raise AssertionError(f"engine seam chunked: {f} differs")
+    if not np.array_equal(got["key_words_le"], got["key_words_be"].byteswap()):
+        raise AssertionError("engine seam chunked: key_words_le differs")
+    if launches["fused_resolve"] < 3:
+        raise AssertionError(f"engine seam chunked: launches {launches}")
+    return {"card": card, "runs": 8, "entries_in": 8 * SEAM_RUN_ENTRIES,
+            "entries_out": count, "launches": launches, "seconds": seconds,
+            "entries_per_s": 8 * SEAM_RUN_ENTRIES / seconds,
+            "numpy_reference_s": reference_s, "max_abs_err": 0}, launches
 
 
 def main() -> int:
@@ -434,6 +758,26 @@ def main() -> int:
             raise AssertionError(f"known answers [{backend}]: {got}")
     emit({"phase": "known_answers", "entries": len(entries), "ok": True})
 
+    # ---- 4b. the engine seam, each path counted on its own ------------
+    seam = engine_seam_known_answers(dev, entries, expect)
+    emit({"phase": "engine_seam_known_answers", "card": card, **seam})
+    _build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    work_dir = tempfile.mkdtemp(prefix="seam_", dir=str(_build.BUILD_ROOT))
+    try:
+        job, job_launches = engine_seam_job(dev, work_dir, card)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    emit({"phase": "engine_seam_job", **job})
+    chunked, chunked_launches = engine_seam_chunked(dev, card)
+    emit({"phase": "engine_seam_chunked", **chunked})
+    _sort_flag(None)
+    launches_by_path = {
+        "main_path": launches,
+        "engine_seam_job": {k: sum(c[k] for c in job_launches.values())
+                            for k in sources},
+        "engine_seam_chunked": {k: chunked_launches[k] for k in sources},
+    }
+
     # ---- 5. timings ----------------------------------------------------
     def mb(*ts) -> float:
         return sum(t.numel() * t.element_size() for t in ts)
@@ -451,6 +795,8 @@ def main() -> int:
         row["ms"] = time_ms(lambda: bitonic_sort_lanes(ops, num_keys), reps)
         row["launches_per_call"] = check_calls(
             "bitonic_sort", k1_calls(ops, num_keys), "K1 timing")
+        row["device_ms"] = device_ms(lambda: bitonic_sort_lanes(ops,
+                                                                num_keys))
         row["plain_ms"] = time_ms(lambda: sort_lanes_plain(ops, num_keys),
                                   reps)
         row["bound_ms"] = bound(2 * mb(*ops))
@@ -474,6 +820,8 @@ def main() -> int:
                             reps)
         row["launches_per_call"] = check_calls(
             "fused_resolve", k2_calls(args, flags), "K2 timing")
+        row["device_ms"] = device_ms(
+            lambda: fused_merge_resolve(*args, **flags))
         row["plain_ms"] = time_ms(
             lambda: merge_resolve_plain(*args, **flags), reps)
         row["bound_ms"] = bound(
@@ -520,6 +868,8 @@ def main() -> int:
     k3_plain = time_ms(lambda: bloom_build_plain(*k3_args,
                                                  num_words=b_words),
                        SHORT_REPS)
+    k3_device = device_ms(lambda: launch_bloom_build(*k3_args,
+                                                     num_words=b_words))
     k3_bytes = mb(*k3_args) + 4 * b_words
 
     forwards = {}
@@ -548,8 +898,8 @@ def main() -> int:
         {"name": "bitonic_sort", "route": "cuda",
          "source": sources["bitonic_sort"][0],
          "replaces": sources["bitonic_sort"][1],
-         "launches": launches["bitonic_sort"],
          "max_abs_err": errs["bitonic_sort"], "ms": k1_rows[0]["ms"],
+         "device_ms": k1_rows[0]["device_ms"],
          "plain_ms": k1_rows[0]["plain_ms"],
          "bound_ms": k1_rows[0]["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -558,8 +908,8 @@ def main() -> int:
         {"name": "fused_resolve", "route": "cuda",
          "source": sources["fused_resolve"][0],
          "replaces": sources["fused_resolve"][1],
-         "launches": launches["fused_resolve"],
          "max_abs_err": errs["fused_resolve"], "ms": k2_rows[0]["ms"],
+         "device_ms": k2_rows[0]["device_ms"],
          "plain_ms": k2_rows[0]["plain_ms"],
          "bound_ms": k2_rows[0]["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
@@ -568,12 +918,16 @@ def main() -> int:
         {"name": "bloom_build", "route": "cuda",
          "source": sources["bloom_build"][0],
          "replaces": sources["bloom_build"][1],
-         "launches": launches["bloom_build"],
          "max_abs_err": errs["bloom_build"], "ms": k3_ms,
+         "device_ms": k3_device,
          "plain_ms": k3_plain, "bound_ms": bound(k3_bytes),
          "bound_by": "bytes", "library_ms": None,
          "shape": f"N=2^17, {b_words} words"},
     ]
+    for row in kernels:
+        by_path = {p: c[row["name"]] for p, c in launches_by_path.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

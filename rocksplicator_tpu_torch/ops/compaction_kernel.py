@@ -28,6 +28,7 @@ wherever the JAX u32 arithmetic wraps.
 from __future__ import annotations
 
 import enum
+import os
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -41,12 +42,25 @@ _DELETE = 2
 _MERGE = 3
 
 SORT_BACKENDS = ("fused", "bitonic")
+SORT_BACKEND_ENV = "RSTPU_FLAG_SORT_BACKEND"
+# The reference's ``sort_backend`` flag values → this module's backends.
+# Its "lax" (XLA sort + resolve, the reference's default) has no
+# counterpart on the card: the plain path never runs on CUDA tensors, so
+# "lax", an unset flag and any unknown value all take K2.
+_FLAG_TO_BACKEND = {"pallas_fused": "fused", "pallas": "bitonic"}
 
 __all__ = [
     "MergeKind", "SORT_BACKENDS", "bswap32", "composite_key_lanes",
     "split_composite_lanes", "resolve_decisions", "resolve_sorted_lanes",
-    "merge_resolve_plain", "merge_resolve_kernel",
+    "merge_resolve_plain", "merge_resolve_kernel", "deployment_sort_backend",
 ]
+
+
+def deployment_sort_backend() -> str:
+    """The deployment-wide ``sort_backend`` for callers with no per-call
+    choice (the engine-seam backend, the chunked merge): the reference's
+    flag, read from ``RSTPU_FLAG_SORT_BACKEND`` at each call."""
+    return _FLAG_TO_BACKEND.get(os.environ.get(SORT_BACKEND_ENV), "fused")
 
 
 class MergeKind(enum.Enum):

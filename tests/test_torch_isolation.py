@@ -1,5 +1,7 @@
 """The port imports neither JAX nor the JAX package, and its entry points
-do not quietly run on the CPU when CUDA is missing.
+do not quietly run on the CPU when CUDA is missing; its engine seam
+(``gpu/``, ``storage/``) compacts into a file on the CPU with both
+blocked.
 
 The import check runs in a subprocess, because this test process has
 imported JAX already (tests/conftest.py)."""
@@ -36,11 +38,18 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "rocksplicator_tpu"))
 assert not bad, bad
+seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format", "storage.errors",
+        "storage.merge", "storage.compaction", "storage.bloom",
+        "storage.rlz", "storage.planar", "storage.sst"}
+missing = {m for m in seam if pkg.__name__ + "." + m not in names}
+assert not missing, missing
 print("IMPORTED", len(names))
 
 from rocksplicator_tpu_torch.entry import bench_model, entry
+from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
 from rocksplicator_tpu_torch.models import CompactionModel
-for call in (entry, bench_model, lambda: CompactionModel().example_args()):
+for call in (entry, bench_model, lambda: CompactionModel().example_args(),
+             GpuCompactionBackend):
     try:
         call()
     except RuntimeError as exc:
@@ -51,6 +60,24 @@ model, args = entry(device="cpu")
 out = model(*args)
 assert int(out["count"]) > 0
 print("RAISES_WITHOUT_CUDA")
+
+# the engine seam on the CPU: merge two runs into a file and read it back
+import struct, tempfile
+from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+from rocksplicator_tpu_torch.storage.sst import SSTReader
+pk = struct.Struct("<q").pack
+runs = [[(b"k%03d" % i, 10 + i, 3, pk(i)) for i in range(50)],
+        [(b"k%03d" % i, 1 + i % 9, 1, pk(100)) for i in range(50)]]
+with tempfile.TemporaryDirectory() as d:
+    outs = GpuCompactionBackend(device="cpu").merge_runs_to_files(
+        runs, UInt64AddOperator(), True, lambda: d + "/out.tsst", 32768, 1,
+        10, 1 << 20)
+    assert [p for p, _ in outs] == [d + "/out.tsst"], outs
+    reader = SSTReader(d + "/out.tsst")
+    got = [(k, v) for k, _s, _t, v in reader.iterate()]
+    reader.close()
+assert got == [(b"k%03d" % i, pk(100 + i)) for i in range(50)], got[:3]
+print("SEAM_ON_CPU")
 rc = chip_smoke.main()
 assert rc != 0, rc
 print("SMOKE_REFUSES", rc)
@@ -71,6 +98,7 @@ def test_port_imports_without_jax_and_refuses_cpu_fallback():
     n = int(re.search(r"IMPORTED (\d+)", res.stdout).group(1))
     assert n >= 15, res.stdout
     assert "RAISES_WITHOUT_CUDA" in res.stdout
+    assert "SEAM_ON_CPU" in res.stdout
     assert "SMOKE_REFUSES" in res.stdout
     assert '"ok"' not in res.stdout
 
