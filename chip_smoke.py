@@ -12,12 +12,17 @@ PyTorch built for CUDA. It
 2. holds each kernel against its plain PyTorch version on the card, element
    for element (tolerance 0: these are integer lanes), K1 on tied keys too
    (it is stable), and checks the CUDA launches that K1's and K2's C entry
-   points count per call against the wrappers' plans;
+   points count per call against the wrappers' plans; values of any width
+   (``parity`` F6: 16-byte keys with W = 16 and W = 64 value words); the
+   shard axis (``parity`` batched: K2 over 8 shards of 2^17 under both
+   flag sets with one overflow shard, K1 segmented, K3 batched, each
+   against the plain version shard by shard);
 3. drives the main path through the entry points — ``entry()``, the bench
-   configuration over 8 shards of 2^17 entries, and one 2^22-entry job with
-   every fast-path flag off — under both ``sort_backend``s, with every
+   configuration as ONE batched forward over 8 shards of 2^17 entries
+   (``jax.vmap(model.forward)`` in the JAX package), and one 2^22-entry job
+   with every fast-path flag off — under both ``sort_backend``s, with every
    launch count set to 0 just before and read just after, and compares
-   every output with the plain pipeline on the card;
+   every output with the plain pipeline on the card (shard by shard);
 4. checks a small hand-made batch against known answers;
 4b. drives the engine seam, ``gpu.GpuCompactionBackend``, each path with
    the launch counts set to 0 just before it and read just after:
@@ -29,13 +34,25 @@ PyTorch built for CUDA. It
    ``numpy_merge_resolve``'s output with a host-built bloom (K2 or K1
    launched, K3 once per file; the host-clock time split by stage); and
    ``gpu.chunked.chunked_merge`` over 8 runs of 2^20 entries against
-   ``numpy_merge_resolve``;
+   ``numpy_merge_resolve``; the same job with ``max_subcompactions = 4``
+   (``engine_seam_subcompact``: one batched K2 call over the key-range
+   slices, the same files); planar runs with 64-byte values and no
+   operator (``engine_seam_wide``);
+4c. drives the batched service, ``gpu.compaction_service``:
+   ``compact_shard_batch`` over 8 shards of 2^20 counter entries
+   (``service_batch``: one K2 and one K3 call, each shard equal to
+   ``numpy_merge_resolve`` and the host bloom) and ``compact_dbs_batched``
+   over 12 stub DBs of 4 planar runs of 2^18 entries (``service_dbs``: a
+   group of 8 and a padded group of 4 on the stream path, every file
+   byte-identical to the numpy-resolved sink's);
 5. times each kernel and each forward (median of CUDA-event timed runs
-   after warm-up: 10 at the 2^22 shape, 50 at the host-bound small shapes,
-   whose medians move most from call to call) beside its plain version and
-   its memory bound, and each kernel's device time per call from
-   torch.profiler, K1 and K2 at 2^17 and 2^22, both over the sort tiles
-   the plan could choose, and profiles 8 bench-shard forwards.
+   after warm-up: 10 at the 2^22 and batched 8 x 2^20 shapes, 50 at the
+   host-bound small shapes, whose medians move most from call to call)
+   beside its plain version and its memory bound, and each kernel's device
+   time per call from torch.profiler, K1 and K2 at 2^17 and 2^22, both
+   over the sort tiles the plan could choose, the batched shapes and
+   W = 16; and profiles the batched bench forward and the 8 single-shard
+   forwards it replaces.
 
 Every phase raises on failure and the script then exits non-zero. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -63,6 +80,15 @@ SHORT_REPS = 50  # host-bound shapes (< ~10 ms a call)
 # (the backend's MAX_LAUNCH_ENTRIES), and DBOptions' target_file_bytes
 SEAM_RUN_ENTRIES = 1 << 20
 SEAM_TARGET_FILE_BYTES = 64 << 20
+# rows of each parity case of the new shapes (F6, batched shards)
+PARITY_N = 1 << 17
+# the batched service: shards of compact_shard_batch (the JAX package's
+# MAX_BATCHED_DB_ENTRIES at its default group of 8), and the runs of each
+# stub DB of compact_dbs_batched (four fill one such shard)
+SERVICE_ENTRIES = 1 << 20
+DBS_RUN_ENTRIES = 1 << 18
+DBS_SHARDS = 12
+WIDE_RUN_ENTRIES = 1 << 18
 
 
 def emit(obj) -> None:
@@ -204,7 +230,7 @@ def profile_shards(shards, forward_ms: float) -> dict:
         groups[g] = groups.get(g, 0.0) + t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     busy_per_forward_ms = busy / len(shards) / 1e3
-    return {"shards": len(shards), "device_kernels": len(spans),
+    return {"forwards": len(shards), "device_kernels": len(spans),
             "device_busy_us": busy, "device_window_us": window,
             "device_idle_share_profiled": (1 - busy / window if window
                                            else None),
@@ -267,17 +293,15 @@ def _concat_lanes(runs) -> dict:
 
 
 def _sort_flag(flag) -> None:
-    """Pick the deployment sort backend the engine seam reads (None: the
-    default)."""
-    import os
-
-    from rocksplicator_tpu_torch.ops.compaction_kernel import (
-        SORT_BACKEND_ENV)
+    """Set the ``sort_backend`` flag the engine seam and the batched
+    service read (None: its default)."""
+    from rocksplicator_tpu_torch.ops import compaction_kernel  # noqa: F401
+    from rocksplicator_tpu_torch.utils.flags import FLAGS
 
     if flag is None:
-        os.environ.pop(SORT_BACKEND_ENV, None)
+        FLAGS.reset("sort_backend")
     else:
-        os.environ[SORT_BACKEND_ENV] = flag
+        FLAGS.set("sort_backend", flag)
 
 
 SEAM_FLAGS = {"fused": "pallas_fused", "bitonic": "pallas"}
@@ -333,19 +357,23 @@ def engine_seam_known_answers(dev, entries, expect) -> dict:
     return {"launches": launches, "cpu_routes": sorted(cpu_routes)}
 
 
-def engine_seam_job(dev, work_dir: str, card: str) -> dict:
+def engine_seam_job(dev, work_dir: str, card: str) -> tuple:
     """The counter service's compaction job at the single-launch limit:
     4 runs of 2^20 entries written as planar SST files, merged by
     GpuCompactionBackend.merge_runs_to_files under both sort backends at
-    DBOptions' defaults. Every output file must equal, byte for byte, the
-    file the same sink writes from numpy_merge_resolve's output with a
-    host-built bloom."""
+    DBOptions' defaults, and once more with max_subcompactions = 4 (K2
+    over the four key-range slices in one batched call). Every output file
+    must equal, byte for byte, the file the same sink writes from
+    numpy_merge_resolve's output with a host-built bloom. Returns (report,
+    launches by backend, the subcompaction's report, its launches)."""
     import os
 
     import torch
 
     from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
     from rocksplicator_tpu_torch.gpu.backend import numpy_merge_resolve
+    from rocksplicator_tpu_torch.gpu.compaction_service import (
+        GpuCompactionService)
     from rocksplicator_tpu_torch.gpu.format import (planar_stride,
                                                     write_sst_from_arrays)
     from rocksplicator_tpu_torch.ops import _build
@@ -397,7 +425,9 @@ def engine_seam_job(dev, work_dir: str, card: str) -> dict:
               "write_inputs_s": write_inputs_s,
               "numpy_reference_s": reference_s, "backends": {}}
     launches = {}
-    for name, flag in SEAM_FLAGS.items():
+    variants = [(name, flag, 1) for name, flag in SEAM_FLAGS.items()]
+    variants.append(("subcompact", SEAM_FLAGS["fused"], 4))
+    for name, flag, subcompactions in variants:
         _sort_flag(flag)
         readers = [SSTReader(p) for p in inputs]
         made = []
@@ -413,7 +443,8 @@ def engine_seam_job(dev, work_dir: str, card: str) -> dict:
             t0 = time.time()
             outs = backend.merge_runs_to_files(
                 readers, UInt64AddOperator(), True, path_factory,
-                block_bytes, COMPRESSION_ZLIB, bits_per_key, target)
+                block_bytes, COMPRESSION_ZLIB, bits_per_key, target,
+                max_subcompactions=subcompactions)
             torch.cuda.synchronize()
             seconds = time.time() - t0
             launches[name] = dict(_build.LAUNCHES)
@@ -432,11 +463,23 @@ def engine_seam_job(dev, work_dir: str, card: str) -> dict:
                 p["num_entries"] for _, p in outs) != count:
             raise AssertionError(f"engine seam job [{name}]: {len(outs)} "
                                  f"files, want {len(want_files)}")
-        merge_kernel = "fused_resolve" if name == "fused" else "bitonic_sort"
+        merge_kernel = "bitonic_sort" if name == "bitonic" else (
+            "fused_resolve")
         if (launches[name][merge_kernel] < 1
                 or launches[name]["bloom_build"] != len(outs)):
             raise AssertionError(f"engine seam job [{name}]: launches "
                                  f"{launches[name]}")
+        if name == "subcompact" and (
+                launches[name]["fused_resolve"] != 1
+                or "subcompact" not in backend.last_stage_seconds):
+            raise AssertionError(f"engine seam subcompact: not one batched "
+                                 f"K2 call ({launches[name]}, "
+                                 f"{backend.last_stage_seconds})")
+        # no slice may reach the file through the host recompute
+        if name == "subcompact" and GpuCompactionService.instance(
+                dev).last_host_recomputes:
+            raise AssertionError("engine seam subcompact: a slice was "
+                                 "recomputed on the host")
         for path in made:
             os.remove(path)
         report["backends"][name] = {
@@ -444,7 +487,11 @@ def engine_seam_job(dev, work_dir: str, card: str) -> dict:
             "entries_per_s": n_in / seconds,
             "stage_seconds": backend.last_stage_seconds,
             "identical_files": len(outs)}
-    return {"card": card, **report}, launches
+    sub = report["backends"].pop("subcompact")
+    sub_launches = launches.pop("subcompact")
+    return ({"card": card, **report}, launches,
+            {"card": card, "entries_in": n_in, "entries_out": count,
+             "max_subcompactions": 4, **sub}, sub_launches)
 
 
 def engine_seam_chunked(dev, card: str) -> tuple:
@@ -500,6 +547,317 @@ def engine_seam_chunked(dev, card: str) -> tuple:
             "numpy_reference_s": reference_s, "max_abs_err": 0}, launches
 
 
+def wide_runs(n_runs: int, run_entries: int, key_space: int, seed: int,
+              val_words: int) -> list:
+    """Lanes of ``n_runs`` sorted runs with no merge operator: distinct
+    16-byte keys per run, 85% PUT of ``4 * val_words``-byte values and 15%
+    DELETE, disjoint seq ranges, newer runs later."""
+    import numpy as np
+
+    runs = counter_runs(n_runs, run_entries, key_space, seed)
+    rng = np.random.default_rng(seed + 1)
+    for lanes in runs:
+        n = lanes["key_len"].shape[0]
+        vtype = np.where(rng.random(n) < 0.85, 1, 2).astype(np.uint32)
+        words = rng.integers(0, 1 << 32, (n, val_words),
+                             dtype=np.uint64).astype(np.uint32)
+        words[vtype == 2] = 0
+        lanes.update(vtype=vtype, val_words=words,
+                     val_len=np.where(vtype == 2, 0, 4 * val_words).astype(
+                         np.uint32))
+    return runs
+
+
+def _write_runs(runs, work_dir: str, tag: str, block_entries: int) -> list:
+    import os
+
+    from rocksplicator_tpu_torch.gpu.format import write_sst_from_arrays
+    from rocksplicator_tpu_torch.storage.sst import COMPRESSION_ZLIB
+
+    paths = []
+    for r, lanes in enumerate(runs):
+        path = os.path.join(work_dir, f"{tag}_in{r}.tsst")
+        write_sst_from_arrays(lanes, lanes["key_len"].shape[0], path,
+                              block_entries=block_entries,
+                              compression=COMPRESSION_ZLIB, bits_per_key=10,
+                              planar=True)
+        paths.append(path)
+    return paths
+
+
+def _numpy_files(lanes: dict, uint64_add: bool, work_dir: str, tag: str,
+                 target: int, block_bytes: int) -> tuple:
+    """The files the planar sink writes from numpy_merge_resolve's output
+    over ``lanes``, each with a host-built bloom: (paths, count)."""
+    import os
+
+    from rocksplicator_tpu_torch.gpu.backend import numpy_merge_resolve
+    from rocksplicator_tpu_torch.gpu.format import (planar_stride,
+                                                    planar_widths,
+                                                    write_sst_from_arrays)
+    from rocksplicator_tpu_torch.storage.sst import COMPRESSION_ZLIB
+
+    out, count = numpy_merge_resolve(_kv_batch(lanes), uint64_add, True)
+    fields = ("key_words_be", "key_len", "seq_hi", "seq_lo", "vtype",
+              "val_words", "val_len")
+    want = dict(zip(fields, out))
+    stride = planar_stride(*planar_widths(want, count))
+    per_file = max(1024, target // stride)
+    block_entries = max(64, block_bytes // stride)
+    paths = []
+    for i, start in enumerate(range(0, count, per_file)):
+        end = min(start + per_file, count)
+        path = os.path.join(work_dir, f"{tag}_want{i}.tsst")
+        write_sst_from_arrays({f: a[start:end] for f, a in want.items()},
+                              end - start, path, block_entries=block_entries,
+                              compression=COMPRESSION_ZLIB, bits_per_key=10,
+                              planar=True)
+        paths.append(path)
+    return paths, count
+
+
+def _same_files(got: list, want: list, what: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} files, want {len(want)}")
+    for g, w in zip(got, want):
+        with open(g, "rb") as a, open(w, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{what}: {g} differs from {w}")
+
+
+def engine_seam_wide(dev, work_dir: str, card: str) -> tuple:
+    """Planar runs with 16-byte keys and 64-byte values (W = 16 value words
+    through the sort) and no merge operator, merged by
+    GpuCompactionBackend.merge_runs_to_files: the planar files must equal
+    the numpy-resolved sink's byte for byte, and nothing may raise."""
+    import os
+
+    import torch
+
+    from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+    from rocksplicator_tpu_torch.gpu.format import planar_stride
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage.sst import (COMPRESSION_ZLIB,
+                                                     SSTReader)
+
+    block_bytes, target = 32 * 1024, SEAM_TARGET_FILE_BYTES
+    n_in = 4 * WIDE_RUN_ENTRIES
+    runs = wide_runs(4, WIDE_RUN_ENTRIES, n_in, seed=44, val_words=16)
+    inputs = _write_runs(runs, work_dir, "wide",
+                         block_bytes // planar_stride(16, 64))
+    want, count = _numpy_files(_concat_lanes(runs), False, work_dir, "wide",
+                               target, block_bytes)
+    _sort_flag(SEAM_FLAGS["fused"])
+    readers = [SSTReader(p) for p in inputs]
+    made = []
+
+    def path_factory():
+        made.append(os.path.join(work_dir, f"wide_out{len(made)}.tsst"))
+        return made[-1]
+
+    backend = GpuCompactionBackend(device=dev)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.time()
+        outs = backend.merge_runs_to_files(
+            readers, None, True, path_factory, block_bytes,
+            COMPRESSION_ZLIB, 10, target)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        for r in readers:
+            r.close()
+    if outs is None or [p for p, _ in outs] != made:
+        raise AssertionError(f"engine seam wide: sink declined ({outs})")
+    if any(not p["planar"] for _, p in outs):
+        raise AssertionError("engine seam wide: a row-format file")
+    _same_files(made, want, "engine seam wide")
+    if launches["fused_resolve"] != 1 or launches["bloom_build"] != len(outs):
+        raise AssertionError(f"engine seam wide: launches {launches}")
+    return {"card": card, "runs": 4, "entries_in": n_in,
+            "entries_out": count, "key_bytes": 16, "value_bytes": 64,
+            "files": len(outs), "identical_files": len(outs),
+            "launches": launches, "seconds": seconds,
+            "stage_seconds": backend.last_stage_seconds}, launches
+
+
+def service_batch(dev, card: str) -> tuple:
+    """GpuCompactionService.compact_shard_batch over 8 shards of 2^20
+    counter entries (return_arrays): one K2 and one K3 call; every shard's
+    lanes, count and bloom words equal to numpy_merge_resolve's and the
+    host bloom's."""
+    import numpy as np
+    import torch
+
+    from rocksplicator_tpu_torch.gpu.backend import numpy_merge_resolve
+    from rocksplicator_tpu_torch.gpu.compaction_service import (
+        GpuCompactionService)
+    from rocksplicator_tpu_torch.models.compaction_model import (
+        synth_counter_batch)
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.ops.kv_format import KVBatch
+    from rocksplicator_tpu_torch.storage.bloom import (hash_words,
+                                                      num_words_for)
+
+    batches = [KVBatch(val_bytes=8, **synth_counter_batch(
+        SERVICE_ENTRIES, seed=300 + s)) for s in range(BENCH_SHARDS)]
+    svc = GpuCompactionService(device=dev, sort_backend="fused")
+    svc.compact_shard_batch(batches[:1], return_arrays=True)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    results = svc.compact_shard_batch(batches, return_arrays=True)
+    seconds = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    stages = dict(svc.last_stage_seconds)
+    if launches["fused_resolve"] != 1 or launches["bloom_build"] != 1:
+        raise AssertionError(f"service batch: launches {launches}")
+    # every shard must come from K2, none from the host recompute
+    if svc.last_host_recomputes:
+        raise AssertionError(f"service batch: {svc.last_host_recomputes} "
+                             f"shards recomputed on the host")
+    t0 = time.time()
+    num_words = num_words_for(SERVICE_ENTRIES, 10)
+    fields = ("key_words_be", "key_len", "seq_hi", "seq_lo", "vtype",
+              "val_words", "val_len")
+    counts = []
+    for s, (batch, res) in enumerate(zip(batches, results)):
+        out, count = numpy_merge_resolve(batch, True, True)
+        words = np.zeros(num_words, dtype=np.uint32)
+        h1, mask = hash_words(out[0].byteswap(), out[1])
+        np.bitwise_or.at(words, h1 % np.uint32(num_words), mask)
+        if res["count"] != count:
+            raise AssertionError(f"service batch shard {s}: count "
+                                 f"{res['count']}, want {count}")
+        for f, w in zip(fields, out):
+            if not np.array_equal(res["arrays"][f], w):
+                raise AssertionError(f"service batch shard {s}: {f}")
+        if not np.array_equal(res["arrays"]["key_words_le"],
+                              out[0].byteswap()):
+            raise AssertionError(f"service batch shard {s}: key_words_le")
+        if not np.array_equal(res["bloom_words"], words):
+            raise AssertionError(f"service batch shard {s}: bloom words")
+        counts.append(count)
+    return {"card": card, "shards": len(batches),
+            "entries_per_shard": SERVICE_ENTRIES, "counts": counts,
+            "launches": launches, "seconds": seconds,
+            "entries_per_s": len(batches) * SERVICE_ENTRIES / seconds,
+            "stage_seconds": stages,
+            "numpy_reference_s": time.time() - t0, "max_abs_err": 0}, launches
+
+
+class _StubDB:
+    """The four methods compact_dbs_batched calls on a DB (the JAX
+    package's storage/engine.py:1784-1950: plan_full_compaction,
+    allocate_sst, install_full_compaction, abort_full_compaction) over the
+    port's SST reader, for a shard whose runs are planar files on disk."""
+
+    def __init__(self, root: str, runs: list, options):
+        self.options = options
+        self._root = root
+        self._runs = runs
+        self.files = None
+        self.aborted = False
+        self._allocated = 0
+
+    def plan_full_compaction(self) -> dict:
+        from rocksplicator_tpu_torch.storage.sst import SSTReader
+
+        return {"runs": [SSTReader(p) for p in self._runs],
+                "drop_tombstones": True}
+
+    def allocate_sst(self) -> tuple:
+        import os
+
+        self._allocated += 1
+        name = f"out{self._allocated}.tsst"
+        return name, os.path.join(self._root, name)
+
+    def _close(self, plan) -> None:
+        for r in plan["runs"]:
+            r.close()
+
+    def install_full_compaction(self, plan, files=None, entries=None):
+        self._close(plan)
+        if entries is not None:
+            raise AssertionError("the tuple sink was taken")
+        self.files = files
+
+    def abort_full_compaction(self, plan):
+        self._close(plan)
+        self.aborted = True
+
+
+def service_dbs(dev, work_dir: str, card: str) -> tuple:
+    """compact_dbs_batched over 12 stub DBs, each 4 planar SST runs of 2^18
+    counter entries (one shard at MAX_BATCHED_DB_ENTRIES): the stream path
+    runs a group of 8 and a group of 4 padded to 8, K2 twice. Every output
+    file must equal the numpy-resolved sink's byte for byte."""
+    import os
+    from types import SimpleNamespace
+
+    import torch
+
+    from rocksplicator_tpu_torch.gpu.compaction_service import (
+        GpuCompactionService, compact_dbs_batched)
+    from rocksplicator_tpu_torch.gpu.format import planar_stride
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.sst import COMPRESSION_ZLIB
+
+    block_bytes, target = 32 * 1024, SEAM_TARGET_FILE_BYTES
+    options = SimpleNamespace(
+        merge_operator=UInt64AddOperator(), target_file_bytes=target,
+        block_bytes=block_bytes, compression=COMPRESSION_ZLIB,
+        bits_per_key=10)
+    t0 = time.time()
+    dbs, want, counts = [], {}, {}
+    for s in range(DBS_SHARDS):
+        root = os.path.join(work_dir, f"db{s}")
+        os.makedirs(os.path.join(root, "out"))
+        runs = counter_runs(4, DBS_RUN_ENTRIES, 4 * DBS_RUN_ENTRIES,
+                            seed=500 + s)
+        inputs = _write_runs(runs, root, "run",
+                             block_bytes // planar_stride(16, 8))
+        want[f"db{s}"], counts[f"db{s}"] = _numpy_files(
+            _concat_lanes(runs), True, root, "ref", target, block_bytes)
+        dbs.append((f"db{s}", _StubDB(os.path.join(root, "out"), inputs,
+                                      options)))
+    prepare_s = time.time() - t0
+    _sort_flag(SEAM_FLAGS["fused"])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    handled, remaining = compact_dbs_batched(dbs, group_size=BENCH_SHARDS,
+                                             device=dev)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    if sorted(handled) != sorted(want) or remaining:
+        raise AssertionError(f"service dbs: handled {handled}, remaining "
+                             f"{[n for n, _ in remaining]}")
+    files = 0
+    for name, db in dbs:
+        got = [os.path.join(db._root, f) for f in db.files]
+        _same_files(got, want[name], f"service dbs {name}")
+        files += len(got)
+    if launches["fused_resolve"] != 2 or launches["bloom_build"] != 2 + files:
+        raise AssertionError(f"service dbs: launches {launches}")
+    recomputes = GpuCompactionService.instance(dev).last_host_recomputes
+    if recomputes:
+        raise AssertionError(f"service dbs: {recomputes} shards recomputed "
+                             f"on the host")
+    return {"card": card, "dbs": len(dbs), "runs_per_db": 4,
+            "entries_per_db": 4 * DBS_RUN_ENTRIES, "groups": [8, 4],
+            "entries_out": sum(counts.values()), "files": files,
+            "identical_files": files, "launches": launches,
+            "seconds": seconds,
+            "entries_per_s": len(dbs) * 4 * DBS_RUN_ENTRIES / seconds,
+            "prepare_s": prepare_s}, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -520,15 +878,19 @@ def main() -> int:
     from rocksplicator_tpu_torch.ops.bitonic_sort import (
         bitonic_sort_lanes, plan_sort, sort_lanes_plain)
     from rocksplicator_tpu_torch.ops.bloom import bloom_build_plain
-    from rocksplicator_tpu_torch.ops.bloom_kernel import launch_bloom_build
+    from rocksplicator_tpu_torch.ops.bloom_kernel import (
+        launch_bloom_build, launch_bloom_build_batched)
     from rocksplicator_tpu_torch.ops.compaction_kernel import (
-        MergeKind, composite_key_lanes, merge_resolve_plain)
+        MergeKind, composite_key_lanes, merge_resolve_batched,
+        merge_resolve_plain)
     from rocksplicator_tpu_torch.ops.fused_resolve import (
         fused_merge_resolve, plan_fused)
-    from rocksplicator_tpu_torch.ops.kv_format import (pack_entries,
+    from rocksplicator_tpu_torch.ops.kv_format import (KEY_WORDS,
+                                                       pack_entries,
                                                        unpack_entries)
     from rocksplicator_tpu_torch.ops.lanes import (lanes_from_numpy,
                                                    lanes_to_numpy)
+    from rocksplicator_tpu_torch.storage.bloom import num_words_for
     from rocksplicator_tpu_torch.storage.records import OpType
 
     dev = torch.device(DEVICE)
@@ -598,15 +960,31 @@ def main() -> int:
                                  f"the plan says {want}")
         return got
 
-    def k1_calls(ops, num_keys) -> int:
+    def k1_calls(ops, num_keys, segment=None) -> int:
         return plan_sort(ops[0].shape[0], num_keys,
-                         len(ops) - num_keys).launches
+                         len(ops) - num_keys, segment).launches
 
-    def k2_calls(args, flags) -> int:
+    def k2_calls(args, flags, segment=None) -> int:
         return plan_fused(args[5].shape[0], args[5].shape[1],
                           flags.get("key_words", 6),
                           flags.get("uniform_klen", False),
-                          flags.get("seq32", False)).launches
+                          flags.get("seq32", False), segment).launches
+
+    def stacked_lanes(batches):
+        """(S, C, ...) lanes of S shards on the card, and the same lanes
+        flat as S * C rows."""
+        t = lanes_from_numpy({k: np.stack([b[k] for b in batches])
+                              for k in FORWARD_ARGS}, dev)
+        args = tuple(t[k] for k in FORWARD_ARGS)
+        flat = tuple(x.reshape((-1,) + tuple(x.shape[2:])) for x in args)
+        return args, flat
+
+    def plain_batched(args, flags):
+        """The plain version of the shard axis: merge_resolve_plain shard
+        by shard, on the card."""
+        per = [merge_resolve_plain(*(x[s] for x in args), **flags)
+               for s in range(args[0].shape[0])]
+        return {k: torch.stack([o[k] for o in per]) for k in per[0]}
 
     errs = {k: 0 for k in sources}
 
@@ -686,15 +1064,124 @@ def main() -> int:
     emit({"phase": "parity", "kernel": "bloom_build", "n": k3_n,
           "num_words": k3_words, "max_abs_err": errs["bloom_build"]})
 
+    # ---- 2b. values of any width (F6): 16-byte keys, W = 16 and 64 -----
+    f6_args = {}
+    for w in (16, 64):
+        args = lanes_of(synth_mixed_batch(
+            PARITY_N, seed=600 + w, uniform_klen=True, seq32=True,
+            key_words=4, val_words=w))
+        f6_args[w] = args
+        ops, num_keys = sort_operands(args, True, True, 4)
+        got = bitonic_sort_lanes(ops, num_keys)
+        k1_launch = check_calls("bitonic_sort", k1_calls(ops, num_keys),
+                                f"K1 W={w}")
+        err = max(max_abs_err(g, x) for g, x in zip(
+            got, sort_lanes_plain(ops, num_keys)))
+        if err:
+            raise AssertionError(f"K1 W={w}: differs from plain ({err})")
+        k2_launch = {}
+        for mk in MergeKind:
+            flags = dict(merge_kind=mk, uniform_klen=True, seq32=True,
+                         key_words=4)
+            got = fused_merge_resolve(*args, **flags)
+            k2_launch[mk.value] = check_calls(
+                "fused_resolve", k2_calls(args, flags), f"K2 W={w} {mk}")
+            errs["fused_resolve"] = max(errs["fused_resolve"], compare_outputs(
+                got, merge_resolve_plain(*args, **flags), f"K2 W={w} {mk}"))
+        emit({"phase": "parity", "case": "F6 wide values", "n": PARITY_N,
+              "key_bytes": 16, "val_words": w, "k1_lanes": len(ops),
+              "k1_num_keys": num_keys, "k1_launches_per_call": k1_launch,
+              "k2_launches_per_call": k2_launch, "max_abs_err": err})
+
+    # ---- 2c. the shard axis: K2, K1 segmented, K3 batched -------------
+    # both flag sets; shard 5 holds 2^16+ operands of one key and must be
+    # the only shard flagged
+    batched = {}
+    for label, fast in (("bench_flags", True), ("flags_off", False)):
+        kw_n = 4 if fast else 6
+        shards_np = [synth_mixed_batch(
+            PARITY_N, seed=700 + s, uniform_klen=fast, seq32=fast,
+            key_words=kw_n, valid_frac=0.9,
+            hot_rows=70000 if s == 5 else 0) for s in range(BENCH_SHARDS)]
+        args, flat = stacked_lanes(shards_np)
+        flags = dict(uniform_klen=fast, seq32=fast, key_words=kw_n)
+        want = plain_batched(args, flags)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = merge_resolve_batched(*args, sort_backend="fused", **flags)
+        torch.cuda.synchronize()
+        calls = dict(_build.LAUNCHES)
+        k2_launch = check_calls("fused_resolve",
+                                k2_calls(flat, flags, PARITY_N),
+                                f"K2 batched {label}")
+        got_b = merge_resolve_batched(*args, sort_backend="bitonic", **flags)
+        for backend, out in (("fused", got), ("bitonic", got_b)):
+            errs["fused_resolve"] = max(errs["fused_resolve"], compare_outputs(
+                out, want, f"batched {backend} {label}"))
+        flagged = [i for i, f in enumerate(want["needs_cpu_fallback"].tolist())
+                   if f]
+        if flagged != [5] or calls["fused_resolve"] != 1:
+            raise AssertionError(f"K2 batched {label}: flagged {flagged}, "
+                                 f"launches {calls}")
+        batched[label] = (args, flat, flags, got)
+        emit({"phase": "parity", "kernel": "fused_resolve",
+              "case": f"batched {label}", "shards": BENCH_SHARDS,
+              "capacity": PARITY_N, "k2_calls": calls["fused_resolve"],
+              "launches_per_call": k2_launch, "flagged_shards": flagged,
+              "counts": want["count"].tolist(),
+              "compared_with": "merge_resolve_plain shard by shard, both "
+                               "sort backends", "max_abs_err": 0})
+    args, flat, flags, got = batched["flags_off"]
+    seg_ops, seg_keys = sort_operands(flat, False, False, 6)
+    got_k1 = bitonic_sort_lanes(seg_ops, seg_keys, PARITY_N)
+    k1_launch = check_calls("bitonic_sort",
+                            k1_calls(seg_ops, seg_keys, PARITY_N),
+                            "K1 segmented")
+    err = 0
+    for s in range(BENCH_SHARDS):
+        rows = slice(s * PARITY_N, (s + 1) * PARITY_N)
+        want_s = sort_lanes_plain([x[rows] for x in seg_ops], seg_keys)
+        err = max(err, max(max_abs_err(g[rows], x)
+                           for g, x in zip(got_k1, want_s)))
+    errs["bitonic_sort"] = max(errs["bitonic_sort"], err)
+    if err:
+        raise AssertionError(f"K1 segmented: differs from plain ({err})")
+    emit({"phase": "parity", "kernel": "bitonic_sort", "case": "segmented",
+          "shards": BENCH_SHARDS, "segment": PARITY_N,
+          "lanes": len(seg_ops), "num_keys": seg_keys,
+          "launches_per_call": k1_launch,
+          "compared_with": "sort_lanes_plain shard by shard",
+          "max_abs_err": err})
+    k3_rows = torch.arange(PARITY_N, device=dev)
+    got_k3 = launch_bloom_build_batched(got["key_words_le"], got["key_len"],
+                                        got["count"], num_words=k3_words)
+    want_k3 = torch.stack([bloom_build_plain(
+        got["key_words_le"][s], got["key_len"][s], k3_rows < got["count"][s],
+        num_words=k3_words) for s in range(BENCH_SHARDS)])
+    err = max_abs_err(got_k3, want_k3)
+    errs["bloom_build"] = max(errs["bloom_build"], err)
+    if err:
+        raise AssertionError(f"K3 batched: differs from plain ({err})")
+    emit({"phase": "parity", "kernel": "bloom_build", "case": "batched",
+          "shards": BENCH_SHARDS, "capacity": PARITY_N,
+          "num_words": k3_words,
+          "compared_with": "bloom_build_plain shard by shard",
+          "max_abs_err": err})
+
     # ---- 3. the main path, counted -----------------------------------
     entry_model, entry_args = entry(dev)
+    # the bench: its 8 shards as ONE batched forward (jax.vmap(forward) in
+    # the JAX package, bench.py:316), and the 8 single-shard forwards it
+    # replaces, timed beside it
+    bench_batch_model, bench_batch_args = bench_model(dev,
+                                                      shards=BENCH_SHARDS)
     shards = [bench_model(dev, seed=s) for s in range(BENCH_SHARDS)]
     bench_cfg = shards[0][0]
     big_model = CompactionModel(capacity=BIG_N, emit_planar=True,
                                 row_klen=24, row_vlen=8)
-    runs = [("entry", entry_model, entry_args)]
-    runs += [(f"bench_shard{s}", m, a) for s, (m, a) in enumerate(shards)]
-    runs += [("job_2p22", big_model, big_args)]
+    runs = [("entry", entry_model, entry_args),
+            ("bench_8_shards", bench_batch_model, bench_batch_args),
+            ("job_2p22", big_model, big_args)]
     results = {}
     per_backend = {}
     for backend in ("fused", "bitonic"):
@@ -722,15 +1209,27 @@ def main() -> int:
         for backend in ("fused", "bitonic"):
             compare_outputs(results[(backend, label)], want,
                             f"{label} [{backend}]")
-        counts[label] = int(want["count"])
-        if bool(want["needs_cpu_fallback"]):
+        counts[label] = want["count"].tolist()
+        if bool(want["needs_cpu_fallback"].any()):
             raise AssertionError(f"{label}: unexpected overflow flag")
+        lead = tuple(args[1].shape)  # (capacity,) or (shards, capacity)
         for k, v in want.items():
-            if v.dim() and v.shape[0] != model.capacity and k not in (
+            if k in ("count", "needs_cpu_fallback"):
+                if tuple(v.shape) != lead[:-1]:
+                    raise AssertionError(f"{label}: {k} has shape "
+                                         f"{v.shape}")
+            elif tuple(v.shape[:len(lead)]) != lead and k not in (
                     "bloom", "planar_words", "planar_chk"):
                 raise AssertionError(f"{label}: {k} has shape {v.shape}")
+    for s, (model, args) in enumerate(shards):
+        # the batched forward equals each shard's own forward
+        compare_outputs({k: v[s] for k, v in results[
+            ("fused", "bench_8_shards")].items()}, model.forward_plain(*args),
+            f"bench_8_shards shard {s} vs its single-shard forward")
     emit({"phase": "main_path_parity", "counts": counts,
-          "compared_with": "forward_plain on the card", "max_abs_err": 0})
+          "compared_with": "forward_plain on the card (shard by shard for "
+                           "the batched forward, and each shard's own "
+                           "single-shard forward)", "max_abs_err": 0})
 
     # ---- 4. known answers on a small batch ---------------------------
     pk = struct.Struct("<q").pack
@@ -764,19 +1263,34 @@ def main() -> int:
     _build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     work_dir = tempfile.mkdtemp(prefix="seam_", dir=str(_build.BUILD_ROOT))
     try:
-        job, job_launches = engine_seam_job(dev, work_dir, card)
+        job, job_launches, sub, sub_launches = engine_seam_job(
+            dev, work_dir, card)
+        emit({"phase": "engine_seam_job", **job})
+        emit({"phase": "engine_seam_subcompact", **sub})
+        chunked, chunked_launches = engine_seam_chunked(dev, card)
+        emit({"phase": "engine_seam_chunked", **chunked})
+        wide, wide_launches = engine_seam_wide(dev, work_dir, card)
+        emit({"phase": "engine_seam_wide", **wide})
+        # ---- 4c. the batched service, each path counted on its own ----
+        svc_batch, svc_batch_launches = service_batch(dev, card)
+        emit({"phase": "service_batch", **svc_batch})
+        svc_dbs, svc_dbs_launches = service_dbs(dev, work_dir, card)
+        emit({"phase": "service_dbs", **svc_dbs})
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
-    emit({"phase": "engine_seam_job", **job})
-    chunked, chunked_launches = engine_seam_chunked(dev, card)
-    emit({"phase": "engine_seam_chunked", **chunked})
     _sort_flag(None)
     launches_by_path = {
         "main_path": launches,
         "engine_seam_job": {k: sum(c[k] for c in job_launches.values())
                             for k in sources},
-        "engine_seam_chunked": {k: chunked_launches[k] for k in sources},
+        "engine_seam_subcompact": sub_launches,
+        "engine_seam_chunked": chunked_launches,
+        "engine_seam_wide": wide_launches,
+        "service_batch": svc_batch_launches,
+        "service_dbs": svc_dbs_launches,
     }
+    launches_by_path = {p: {k: c[k] for k in sources}
+                        for p, c in launches_by_path.items()}
 
     # ---- 5. timings ----------------------------------------------------
     def mb(*ts) -> float:
@@ -785,53 +1299,114 @@ def main() -> int:
     def bound(nbytes: float) -> float:
         return nbytes / HBM_BYTES_PER_S * 1e3
 
-    def k1_row(ops, num_keys, reps) -> dict:
-        """K1 and its plain version on the same lanes; the bound moves
-        each lane in once and out once."""
-        row = {"n": ops[0].shape[0], "lanes": len(ops),
-               "num_keys": num_keys, "reps": reps,
+    def k1_row(ops, num_keys, reps, shape, segment=None) -> dict:
+        """K1 and its plain version on the same lanes (each segment of
+        ``segment`` rows on its own); the bound moves each lane in once
+        and out once."""
+        row = {"shape": shape, "n": ops[0].shape[0], "lanes": len(ops),
+               "num_keys": num_keys, "segment": segment, "reps": reps,
                "tile": plan_sort(ops[0].shape[0], num_keys,
-                                 len(ops) - num_keys).tile}
-        row["ms"] = time_ms(lambda: bitonic_sort_lanes(ops, num_keys), reps)
+                                 len(ops) - num_keys, segment).tile}
+        row["ms"] = time_ms(
+            lambda: bitonic_sort_lanes(ops, num_keys, segment), reps)
         row["launches_per_call"] = check_calls(
-            "bitonic_sort", k1_calls(ops, num_keys), "K1 timing")
-        row["device_ms"] = device_ms(lambda: bitonic_sort_lanes(ops,
-                                                                num_keys))
-        row["plain_ms"] = time_ms(lambda: sort_lanes_plain(ops, num_keys),
-                                  reps)
+            "bitonic_sort", k1_calls(ops, num_keys, segment), "K1 timing")
+        row["device_ms"] = device_ms(
+            lambda: bitonic_sort_lanes(ops, num_keys, segment))
+        row["plain_ms"] = time_ms(
+            lambda: sort_lanes_plain(ops, num_keys, segment), reps)
         row["bound_ms"] = bound(2 * mb(*ops))
         return row
 
-    def k2_row(args, flags, reps) -> dict:
-        """K2 and its plain version; the bound reads the input lanes the
+    def k2_row(args, flags, reps, shape, shards=None) -> dict:
+        """K2 and its plain version (shard by shard over ``shards``
+        shards of the flat lanes); the bound reads the input lanes the
         flags use and writes every output once."""
         kw, kl, shi, slo, vt, vw, vl, valid = args
+        n = vw.shape[0]
+        segment = n // shards if shards else None
         key_words = flags.get("key_words", 6)
-        out = fused_merge_resolve(*args, **flags)
+        out = fused_merge_resolve(*args, segment=segment, **flags)
         used = [kw[:, :key_words], kl, slo, vt, vw, vl, valid]
         if not flags.get("seq32", False):
             used.append(shi)
-        row = {"n": vw.shape[0], "flags": dict(flags),
-               "reps": reps,
-               "tile": plan_fused(vw.shape[0], vw.shape[1], key_words,
+        row = {"shape": shape, "n": n, "shards": shards or 1,
+               "flags": dict(flags), "reps": reps,
+               "tile": plan_fused(n, vw.shape[1], key_words,
                                   flags.get("uniform_klen", False),
-                                  flags.get("seq32", False)).sort.tile}
-        row["ms"] = time_ms(lambda: fused_merge_resolve(*args, **flags),
-                            reps)
+                                  flags.get("seq32", False),
+                                  segment).sort.tile}
+        row["ms"] = time_ms(
+            lambda: fused_merge_resolve(*args, segment=segment, **flags),
+            reps)
         row["launches_per_call"] = check_calls(
-            "fused_resolve", k2_calls(args, flags), "K2 timing")
+            "fused_resolve", k2_calls(args, flags, segment), "K2 timing")
         row["device_ms"] = device_ms(
-            lambda: fused_merge_resolve(*args, **flags))
-        row["plain_ms"] = time_ms(
-            lambda: merge_resolve_plain(*args, **flags), reps)
+            lambda: fused_merge_resolve(*args, segment=segment, **flags))
+        if shards:
+            shaped = tuple(x.view((shards, segment) + tuple(x.shape[1:]))
+                           for x in args)
+            row["plain_ms"] = time_ms(
+                lambda: plain_batched(shaped, flags), reps)
+        else:
+            row["plain_ms"] = time_ms(
+                lambda: merge_resolve_plain(*args, **flags), reps)
         row["bound_ms"] = bound(
             mb(*used) + mb(*[v for v in out.values() if v.dim()]))
         return row
 
+    def k3_row(kw_le, key_len, count, num_words, reps, shape) -> dict:
+        """Batched K3 and its plain version (shard by shard); the bound
+        reads the counts, and the key words and length of each row below
+        its shard's count (the kernel reads no other row), once, and
+        writes the bitmaps once."""
+        seg_rows = torch.arange(key_len.shape[1], device=dev)
+        live = int(count.sum())
+
+        def plain():
+            return [bloom_build_plain(kw_le[s], key_len[s],
+                                      seg_rows < count[s],
+                                      num_words=num_words)
+                    for s in range(key_len.shape[0])]
+
+        def kernel():
+            return launch_bloom_build_batched(kw_le, key_len, count,
+                                              num_words=num_words)
+
+        return {"shape": shape, "shards": key_len.shape[0],
+                "capacity": key_len.shape[1], "num_words": num_words,
+                "reps": reps, "ms": time_ms(kernel, reps),
+                "device_ms": device_ms(kernel),
+                "plain_ms": time_ms(plain, reps),
+                "bound_ms": bound(mb(count) + live * 4 * (KEY_WORDS + 1)
+                                  + 4 * key_len.shape[0] * num_words)}
+
     bflags = dict(uniform_klen=True, seq32=True, key_words=4)
-    k1_rows = [k1_row(*k1_bench, SHORT_REPS), k1_row(*k1_big, REPS)]
-    k2_rows = [k2_row(bench_args, bflags, SHORT_REPS),
-               k2_row(big_args, {}, REPS)]
+    # the main path's shape: the bench's 8 shards of 2^17 as one call
+    bb_flat = tuple(x.reshape((-1,) + tuple(x.shape[2:]))
+                    for x in bench_batch_args)
+    k1_bb = sort_operands(bb_flat, True, True, 4)
+    # the service's shape: 8 shards of 2^20 (MAX_BATCHED_DB_ENTRIES)
+    svc_args, svc_flat = stacked_lanes([
+        synth_counter_batch(SERVICE_ENTRIES, seed=300 + s)
+        for s in range(BENCH_SHARDS)])
+    k1_svc = sort_operands(svc_flat, True, True, 4)
+    k1_wide = sort_operands(f6_args[16], True, True, 4)
+    k1_rows = [
+        k1_row(*k1_bb, SHORT_REPS, "bench 8 x 2^17, segmented",
+               bench_cfg.capacity),
+        k1_row(*k1_bench, SHORT_REPS, "2^17, one shard"),
+        k1_row(*k1_big, REPS, "2^22, 14 lanes"),
+        k1_row(*k1_svc, REPS, "batched 8 x 2^20, segmented",
+               SERVICE_ENTRIES),
+        k1_row(*k1_wide, SHORT_REPS, "2^17, W = 16 (24 lanes)")]
+    k2_rows = [
+        k2_row(bb_flat, bflags, SHORT_REPS, "bench 8 x 2^17, batched",
+               BENCH_SHARDS),
+        k2_row(bench_args, bflags, SHORT_REPS, "2^17, one shard"),
+        k2_row(big_args, {}, REPS, "2^22, flags off"),
+        k2_row(svc_flat, bflags, REPS, "batched 8 x 2^20", BENCH_SHARDS),
+        k2_row(f6_args[16], bflags, SHORT_REPS, "2^17, W = 16")]
     emit({"phase": "k1_k2_timings", "card": card, "k1": k1_rows,
           "k2": k2_rows})
 
@@ -856,74 +1431,87 @@ def main() -> int:
     finally:
         bitonic_sort.MAX_TILE = planned_tile
     emit({"phase": "tile_sweep", "card": card,
-          "planned_tile": k1_rows[0]["tile"], "rows": sweep})
+          "planned_tile": k1_rows[1]["tile"], "rows": sweep})
 
-    bench_out = results[("fused", "bench_shard0")]
+    bench_batch_out = results[("fused", "bench_8_shards")]
+    bench_out = {k: v[0] for k, v in bench_batch_out.items()}
     b_valid = torch.arange(bench_cfg.capacity, device=dev) < bench_out[
         "count"]
     b_words = bench_cfg.num_bloom_words
     k3_args = (bench_out["key_words_le"], bench_out["key_len"], b_valid)
-    k3_ms = time_ms(lambda: launch_bloom_build(*k3_args, num_words=b_words),
-                    SHORT_REPS)
-    k3_plain = time_ms(lambda: bloom_build_plain(*k3_args,
+    k3_single = {
+        "shape": "2^17, one shard", "n": bench_cfg.capacity,
+        "num_words": b_words, "reps": SHORT_REPS,
+        "ms": time_ms(lambda: launch_bloom_build(*k3_args,
                                                  num_words=b_words),
-                       SHORT_REPS)
-    k3_device = device_ms(lambda: launch_bloom_build(*k3_args,
-                                                     num_words=b_words))
-    k3_bytes = mb(*k3_args) + 4 * b_words
+                      SHORT_REPS),
+        "device_ms": device_ms(lambda: launch_bloom_build(
+            *k3_args, num_words=b_words)),
+        "plain_ms": time_ms(lambda: bloom_build_plain(
+            *k3_args, num_words=b_words), SHORT_REPS),
+        # the valid flags of every row, the key words and length of the
+        # valid rows only
+        "bound_ms": bound(mb(b_valid) + int(bench_out["count"]) * 4
+                          * (KEY_WORDS + 1) + 4 * b_words)}
+    svc_out = merge_resolve_batched(*svc_args, **bflags)
+    k3_rows = [
+        k3_row(bench_batch_out["key_words_le"], bench_batch_out["key_len"],
+               bench_batch_out["count"], b_words, SHORT_REPS,
+               "bench 8 x 2^17, batched"),
+        k3_single,
+        k3_row(svc_out["key_words_le"], svc_out["key_len"],
+               svc_out["count"], num_words_for(SERVICE_ENTRIES, 10), REPS,
+               "batched 8 x 2^20")]
+    emit({"phase": "k3_timings", "card": card, "k3": k3_rows})
 
     forwards = {}
-    for (label, model, args), reps in zip([runs[0], runs[1], runs[-1]],
-                                          (SHORT_REPS, SHORT_REPS, REPS)):
+    for (label, model, args), reps in zip(runs, (SHORT_REPS, SHORT_REPS,
+                                                 REPS)):
         row = {"reps": reps}
         for backend in ("fused", "bitonic"):
             model.sort_backend = backend
             row[f"{backend}_ms"] = time_ms(lambda: model(*args), reps)
         row["plain_ms"] = time_ms(lambda: model.forward_plain(*args), reps)
         forwards[label] = row
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for model, args in shards:
-        model.sort_backend = "fused"
-        model(*args)
-    torch.cuda.synchronize()
-    forwards["bench_8_shards_host_clock"] = {
-        "fused_ms": (time.time() - t0) * 1e3}
+    # the 8 single-shard forwards the batched forward replaces, one timed
+    # region over all 8
+    row = {"reps": SHORT_REPS}
+    for backend in ("fused", "bitonic"):
+        for model, _args in shards:
+            model.sort_backend = backend
+        row[f"{backend}_ms"] = time_ms(
+            lambda: [model(*args) for model, args in shards], SHORT_REPS)
+    forwards["bench_8_single_shard_forwards"] = row
     emit({"phase": "timings", "card": card, "forward_ms": forwards})
 
-    profile = profile_shards(shards, forwards["bench_shard0"]["fused_ms"])
-    emit({"phase": "profile", "card": card, **profile})
+    bench_batch_model.sort_backend = "fused"
+    profile = profile_shards([(bench_batch_model, bench_batch_args)],
+                             forwards["bench_8_shards"]["fused_ms"])
+    emit({"phase": "profile", "card": card,
+          "what": "one batched forward over the bench's 8 shards",
+          **profile})
+    profile = profile_shards(
+        shards, forwards["bench_8_single_shard_forwards"]["fused_ms"]
+        / len(shards))
+    emit({"phase": "profile_single_shards", "card": card,
+          "what": "8 single-shard forwards", **profile})
 
-    kernels = [
-        {"name": "bitonic_sort", "route": "cuda",
-         "source": sources["bitonic_sort"][0],
-         "replaces": sources["bitonic_sort"][1],
-         "max_abs_err": errs["bitonic_sort"], "ms": k1_rows[0]["ms"],
-         "device_ms": k1_rows[0]["device_ms"],
-         "plain_ms": k1_rows[0]["plain_ms"],
-         "bound_ms": k1_rows[0]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None,
-         "launches_per_call": k1_rows[0]["launches_per_call"],
-         "shape": "N=2^17, 10 lanes, 6 keys", "shapes": k1_rows},
-        {"name": "fused_resolve", "route": "cuda",
-         "source": sources["fused_resolve"][0],
-         "replaces": sources["fused_resolve"][1],
-         "max_abs_err": errs["fused_resolve"], "ms": k2_rows[0]["ms"],
-         "device_ms": k2_rows[0]["device_ms"],
-         "plain_ms": k2_rows[0]["plain_ms"],
-         "bound_ms": k2_rows[0]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None,
-         "launches_per_call": k2_rows[0]["launches_per_call"],
-         "shape": "N=2^17 bench flags", "shapes": k2_rows},
-        {"name": "bloom_build", "route": "cuda",
-         "source": sources["bloom_build"][0],
-         "replaces": sources["bloom_build"][1],
-         "max_abs_err": errs["bloom_build"], "ms": k3_ms,
-         "device_ms": k3_device,
-         "plain_ms": k3_plain, "bound_ms": bound(k3_bytes),
-         "bound_by": "bytes", "library_ms": None,
-         "shape": f"N=2^17, {b_words} words"},
-    ]
+    def kernel(kname, rows, top=0):
+        row = rows[top]
+        return {"name": kname, "route": "cuda",
+                "source": sources[kname][0], "replaces": sources[kname][1],
+                "max_abs_err": errs[kname], "ms": row["ms"],
+                "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": "bytes",
+                "library_ms": None,
+                "launches_per_call": row.get("launches_per_call"),
+                "shape": row["shape"], "shapes": rows}
+
+    # each kernel's headline row is the main path's shape (the bench's 8
+    # shards in one call); no single PyTorch call computes any of them
+    kernels = [kernel("bitonic_sort", k1_rows),
+               kernel("fused_resolve", k2_rows),
+               kernel("bloom_build", k3_rows)]
     for row in kernels:
         by_path = {p: c[row["name"]] for p, c in launches_by_path.items()}
         row["launches"] = sum(by_path.values())

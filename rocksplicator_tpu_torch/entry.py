@@ -6,7 +6,10 @@
                           ``device``.
 ``bench_model(device)`` — the bench configuration (``bench.py``): 2^17
                           entries per shard, 16-byte keys, 32-bit seqs,
-                          planar block encoding.
+                          planar block encoding; ``shards=8`` gives the
+                          bench's 8 shards stacked on a leading axis, one
+                          batched forward (``jax.vmap(model.forward)``,
+                          ``bench.py:316``).
 
 Both default to ``cuda`` and raise without it (``device="cpu"`` runs the
 plain PyTorch path).
@@ -14,7 +17,7 @@ plain PyTorch path).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 from .device import resolve_device
 from .models import CompactionModel
@@ -22,6 +25,7 @@ from .models import CompactionModel
 BENCH_ENTRIES = 131072
 BENCH_KEY_BYTES = 16
 BENCH_VAL_BYTES = 8
+BENCH_SHARDS = 8
 
 
 def entry(device=None, seed: int = 0) -> Tuple[CompactionModel, tuple]:
@@ -33,12 +37,14 @@ def entry(device=None, seed: int = 0) -> Tuple[CompactionModel, tuple]:
     return model, model.example_args(seed=seed, device=dev)
 
 
-def bench_model(device=None, seed: int = 0
+def bench_model(device=None, seed: int = 0, shards: Optional[int] = None
                 ) -> Tuple[CompactionModel, tuple]:
-    """(model, example_args) for the bench configuration."""
+    """(model, example_args) for the bench configuration: one shard's
+    lanes, or with ``shards`` (the bench runs ``BENCH_SHARDS``) that many
+    shards' lanes on a leading axis, shard s from seed ``seed + s``."""
     dev = resolve_device(device)
     model = CompactionModel(
         capacity=BENCH_ENTRIES, uniform_klen=True, seq32=True,
         key_words=BENCH_KEY_BYTES // 4, emit_planar=True,
         row_klen=BENCH_KEY_BYTES, row_vlen=BENCH_VAL_BYTES, val_words=2)
-    return model, model.example_args(seed=seed, device=dev)
+    return model, model.example_args(seed=seed, device=dev, shards=shards)

@@ -16,7 +16,10 @@ custom merge operator, entries the lanes cannot hold (keys over 24 bytes,
 values over 8 bytes on the tuple path), MERGE records without an
 operator, values that are not 8 bytes long under uint64-add, and a
 launch that raises ``needs_cpu_fallback``. A kernel that does not build
-or launch raises.
+or launch raises. Key-range subcompactions (``max_subcompactions > 1``)
+resolve every slice of a job in ONE batched launch
+(``gpu/compaction_service.resolve_slices_batched``); the memory-budget
+streaming merge is not ported yet.
 
 ``NumpyCompactionBackend`` is the vectorized CPU implementation of the
 same algorithm (lexsort + reduceat), and the default fallback.
@@ -65,10 +68,9 @@ def _arrays_from_entries(entries: List[Entry]) -> Optional[dict]:
 
 class GpuCompactionBackend:
     name = "gpu"
-    # key-range subcompactions and the memory-budget streaming merge come
-    # with the batched service; the engine passes neither keyword to a
-    # backend that does not declare them
-    supports_subcompactions = False
+    supports_subcompactions = True
+    # the memory-budget streaming merge is not ported yet: the engine
+    # passes no budget to a backend that does not declare it
     supports_memory_budget = False
 
     def __init__(self, device=None, fallback=None):
@@ -175,15 +177,14 @@ class GpuCompactionBackend:
         readers (sink-written and uniform files decode straight to lanes)
         or entry iterables. Returns [(path, props)], [] for an
         all-tombstoned result, or None → the engine's tuple path.
+        ``max_subcompactions > 1``: the job splits into key-range slices
+        resolved as ONE batched launch (the same files as unsliced).
         ``io_budget`` paces the file writes. Raises TypeError when asked
-        for subcompactions or a memory budget, which this backend does
-        not have yet."""
-        if max_subcompactions != 1 or mem_tracker is not None or (
-                memory_budget_bytes):
+        for a memory budget, which this backend does not have yet."""
+        if mem_tracker is not None or memory_budget_bytes:
             raise TypeError(
-                "GpuCompactionBackend has no key-range subcompactions and no "
-                "compaction memory budget: max_subcompactions must be 1, "
-                "mem_tracker None and memory_budget_bytes 0")
+                "GpuCompactionBackend has no compaction memory budget: "
+                "mem_tracker must be None and memory_budget_bytes 0")
         if merge_op is not None and not is_uint64_add(merge_op):
             return None
         stages = {}
@@ -225,20 +226,32 @@ class GpuCompactionBackend:
         if (merge_op is not None and len(non_del_vlens)
                 and not (non_del_vlens == 8).all()):
             return None
-        uniform_klen, seq32, key_words = fast_flags(
-            kl, lanes["seq_hi"], np.ones(total, dtype=bool))
+        kind = _merge_kind(merge_op)
         t1 = time.perf_counter()
         stages["source_decode"] = t1 - t0
-        dev_lanes = {f: u32_tensor(lanes[f], self.device)
-                     for f in INPUT_FIELDS}
-        t2 = time.perf_counter()
-        stages["upload"] = t2 - t1
-        out, count = run_kernel_arrays(
-            dev_lanes, total, _merge_kind(merge_op), drop_tombstones,
-            uniform_klen=uniform_klen, seq32=seq32, key_words=key_words,
-            to_host=False, device=self.device)
-        t3 = time.perf_counter()
-        stages["merge"] = t3 - t2
+        sliced = None
+        if max_subcompactions > 1:
+            sliced = self._subcompact_arrays(parts, total, int(kl[0]), kind,
+                                             drop_tombstones,
+                                             max_subcompactions)
+        if sliced is not None:
+            # upload and the batched launch in one stage
+            out, count = sliced
+            t3 = time.perf_counter()
+            stages["subcompact"] = t3 - t1
+        else:
+            uniform_klen, seq32, key_words = fast_flags(
+                kl, lanes["seq_hi"], np.ones(total, dtype=bool))
+            dev_lanes = {f: u32_tensor(lanes[f], self.device)
+                         for f in INPUT_FIELDS}
+            t2 = time.perf_counter()
+            stages["upload"] = t2 - t1
+            out, count = run_kernel_arrays(
+                dev_lanes, total, kind, drop_tombstones,
+                uniform_klen=uniform_klen, seq32=seq32, key_words=key_words,
+                to_host=False, device=self.device)
+            t3 = time.perf_counter()
+            stages["merge"] = t3 - t2
         if out is None or count == 0:
             self.last_stage_seconds = stages
             return None if out is None else []
@@ -275,6 +288,27 @@ class GpuCompactionBackend:
         stages["encode_write"] = time.perf_counter() - t5
         self.last_stage_seconds = stages
         return outputs
+
+    def _subcompact_arrays(self, parts, total, klen, kind, drop_tombstones,
+                           max_subcompactions):
+        """Key-range subcompactions on the device: boundary keys from the
+        runs' key distribution, every run sliced at them, ALL slices
+        resolved as one batched launch from the runs' row ranges. Returns
+        (device lanes, count) of the kept rows in boundary order — the
+        unsliced launch's output — or None to take the unsliced path."""
+        from ..storage.native_compaction import (_first_row_ge,
+                                                 plan_subcompactions,
+                                                 slice_parts)
+        from .compaction_service import resolve_slices_on_device
+
+        bounds = plan_subcompactions(parts, total, max_subcompactions, klen)
+        if not bounds:
+            return None
+        cuts = [[_first_row_ge(p, b, klen) for b in bounds] for p in parts]
+        slices = [slice_parts(parts, bounds, si, klen, cuts, fields=FIELDS)
+                  for si in range(len(bounds) + 1)]
+        return resolve_slices_on_device(slices, kind, drop_tombstones,
+                                        device=self.device)
 
 
 class NumpyCompactionBackend:

@@ -4,13 +4,16 @@
 The "model" is not a neural net: its forward step is one shard's
 compaction over a fixed-capacity batch of KV lanes — merge-resolve, bloom
 build, and optionally entry rows or planar block words with their
-checksums. It has no parameters; its state is the lane batch.
+checksums. It has no parameters; its state is the lane batch. Lanes with a
+leading shard axis ((S, C) lanes) compact S shards in one call, the
+counterpart of ``jax.vmap(model.forward)``: one K2 call (or one segmented
+K1 sort) and one K3 call on the card.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,8 +22,9 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.block_encode import (encode_planar_words, encode_rows,
                                 planar_checksums)
-from ..ops.bloom import bloom_build, bloom_build_plain
+from ..ops.bloom import bloom_build, bloom_build_batched, bloom_build_plain
 from ..ops.compaction_kernel import (SORT_BACKENDS, MergeKind,
+                                     merge_resolve_batched,
                                      merge_resolve_kernel,
                                      merge_resolve_plain)
 from ..ops.kv_format import KEY_WORDS
@@ -77,17 +81,29 @@ class CompactionModel(nn.Module):
     def forward(self, key_words_be, key_len, seq_hi, seq_lo, vtype,
                 val_words, val_len, valid) -> Dict[str, torch.Tensor]:
         """One shard's compaction: merged entries + bloom + count (+ rows /
-        planar words). CUDA lanes go through the kernels, CPU lanes
-        through their plain versions."""
-        merge = functools.partial(merge_resolve_kernel,
-                                  sort_backend=self.sort_backend)
-        return self._pipeline(merge, bloom_build, key_words_be, key_len,
-                              seq_hi, seq_lo, vtype, val_words, val_len,
-                              valid)
+        planar words); with a leading shard axis, S shards' at once and
+        every output with that axis. CUDA lanes go through the kernels,
+        CPU lanes through their plain versions."""
+        if key_len.dim() == 2:
+            merge = functools.partial(merge_resolve_batched,
+                                      sort_backend=self.sort_backend)
+            bloom = bloom_build_batched
+        else:
+            merge = functools.partial(merge_resolve_kernel,
+                                      sort_backend=self.sort_backend)
+            bloom = bloom_build
+        return self._pipeline(merge, bloom, key_words_be, key_len, seq_hi,
+                              seq_lo, vtype, val_words, val_len, valid)
 
     def forward_plain(self, *lanes) -> Dict[str, torch.Tensor]:
         """``forward`` through every kernel's plain PyTorch version, on the
-        lanes' own device: the reference the kernels are held against."""
+        lanes' own device, shard by shard with a leading shard axis: the
+        reference the kernels are held against."""
+        if lanes[1].dim() == 2:
+            per = [self._pipeline(merge_resolve_plain, bloom_build_plain,
+                                  *(x[s] for x in lanes))
+                   for s in range(lanes[1].shape[0])]
+            return {k: torch.stack([o[k] for o in per]) for k in per[0]}
         return self._pipeline(merge_resolve_plain, bloom_build_plain, *lanes)
 
     def _pipeline(self, merge: Callable, bloom: Callable, key_words_be,
@@ -99,9 +115,13 @@ class CompactionModel(nn.Module):
             drop_tombstones=self.drop_tombstones,
             uniform_klen=self.uniform_klen, seq32=self.seq32,
             key_words=self.key_words)
-        out_valid = torch.arange(key_len.shape[0],
-                                 device=key_len.device) < out["count"]
-        out["bloom"] = bloom(out["key_words_le"], out["key_len"], out_valid,
+        if key_len.dim() == 2:
+            # batched K3 reads each shard's count on the device
+            live = out["count"]
+        else:
+            live = torch.arange(key_len.shape[0],
+                                device=key_len.device) < out["count"]
+        out["bloom"] = bloom(out["key_words_le"], out["key_len"], live,
                              num_words=self.num_bloom_words)
         if self.emit_rows:
             out["rows"] = encode_rows(
@@ -118,14 +138,23 @@ class CompactionModel(nn.Module):
             out["planar_chk"] = planar_checksums(words)
         return out
 
-    def example_args(self, seed: int = 0, device=None
+    def example_args(self, seed: int = 0, device=None,
+                     shards: Optional[int] = None
                      ) -> Tuple[torch.Tensor, ...]:
         """Inputs matching ``forward``'s signature, as lanes on ``device``
         (default ``cuda``): the arrays the JAX ``example_args`` gives for
-        the same seed."""
-        batch = synth_counter_batch(self.capacity, seed=seed,
-                                    val_words=self.val_words)
-        lanes = lanes_from_numpy(batch, resolve_device(device))
+        the same seed. With ``shards``, S shards' lanes stacked on a
+        leading axis, shard s made from seed ``seed + s``."""
+        dev = resolve_device(device)
+        seeds = [seed] if shards is None else range(seed, seed + shards)
+        batches = [synth_counter_batch(self.capacity, seed=s,
+                                       val_words=self.val_words)
+                   for s in seeds]
+        if shards is None:
+            batch = batches[0]
+        else:
+            batch = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+        lanes = lanes_from_numpy(batch, dev)
         return tuple(lanes[k] for k in FORWARD_ARGS)
 
 

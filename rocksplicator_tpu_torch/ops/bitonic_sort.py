@@ -8,8 +8,12 @@ The name is the TPU kernel's; on the card the algorithm is a merge sort.
 On CUDA tensors it launches kernel K1 (``csrc/bitonic_sort.cu`` over
 ``csrc/merge_sort.cuh``): a shared-memory tile sort and log2(N / tile)
 merge-path passes over the key lanes and a row-index lane, the payload
-gathered once by the last launch. N is a power of two >= 256, at most 16
-lanes; any other shape raises. On CPU tensors it runs
+gathered once through the index: 16 lanes by the last launch, any more in
+``gather_lanes`` launches of 16 lanes each. N is a power of two >= 256,
+with at most 16 key lanes and any number of payload lanes; any other
+shape raises. With ``segment`` (a shard axis) the rows are N / segment
+shards sorted each on its own: the merge passes stop at runs of
+``segment`` rows. On CPU tensors it runs
 ``sort_lanes_plain``, the plain PyTorch version: a stable LSD sequence of
 ``torch.sort`` passes over the widened key lanes.
 
@@ -22,14 +26,15 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 from .lanes import widen
 
-MAX_LANES = 16
+MAX_LANES = 16         # key lanes of one sort
+GROUP = 16             # payload lanes one launch gathers
 ITEMS = 8              # rows per thread in the tile sort and merge passes
 MIN_TILE = 256
 MAX_TILE = 2048
@@ -37,8 +42,8 @@ SMEM_LIMIT = 232448    # shared memory one block may use on Hopper
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "rs_bitonic_sort": (_P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_int64, _P,
-                        _P, ctypes.POINTER(_I), _P),
+    "rs_bitonic_sort": (_P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        ctypes.c_int64, _P, _P, ctypes.POINTER(_I), _P),
 }
 
 
@@ -50,9 +55,11 @@ class SortPlan:
     num_payload: int
     tile: int           # rows each tile_sort block sorts in shared memory
     chunk: int          # output rows of each merge_pass block
-    passes: int         # merge passes: log2(n / tile)
+    passes: int         # merge passes: log2(segment / tile)
+    segment: int        # rows each run ends at: a shard, or n
+    gathers: int        # gather_lanes launches after the last pass
     smem_bytes: int     # dynamic shared memory a launch may take
-    scratch_words: int  # ping-pong buffer words
+    scratch_words: int  # ping-pong buffer words, then the index lane
     launches: int       # CUDA launches of one sort
 
 
@@ -61,10 +68,19 @@ def supported(n: int) -> bool:
     return n >= MIN_TILE and not (n & (n - 1))
 
 
-def plan_sort(n: int, num_keys: int, num_payload: int) -> SortPlan:
+def gather_launches(num_payload: int) -> int:
+    """``gather_lanes`` launches for ``num_payload`` payload lanes: one
+    per group of 16 beyond the first, which the last sort launch
+    gathers."""
+    return max(0, -(-(num_payload - GROUP) // GROUP))
+
+
+def plan_sort(n: int, num_keys: int, num_payload: int,
+              segment: Optional[int] = None) -> SortPlan:
     """The plan for sorting ``num_keys`` key lanes of N rows with
-    ``num_payload`` payload lanes. The tile is as large as a block takes
-    (2048 rows, at most N): on an H100 it beat the smaller tiles, which
+    ``num_payload`` payload lanes, each aligned run of ``segment`` rows on
+    its own (default: all N). The tile is as large as a block takes (2048
+    rows, at most the segment): on an H100 it beat the smaller tiles, which
     give one block per SM or more, at N = 2^17 and by far at 2^22
     (chip_smoke.py tile_sweep, PERF.md), as each merge pass it saves
     costs more than the SMs it leaves idle in the tile sort. Each merge
@@ -73,28 +89,40 @@ def plan_sort(n: int, num_keys: int, num_payload: int) -> SortPlan:
     if not supported(n):
         raise ValueError(f"the sort needs a power-of-two N >= {MIN_TILE}, "
                          f"got {n}")
-    if not 1 <= num_keys <= MAX_LANES or num_payload < 0 or (
-            num_keys + num_payload > MAX_LANES):
-        raise ValueError(f"the sort takes 1..{MAX_LANES} key lanes and at "
-                         f"most {MAX_LANES} lanes in all, got {num_keys} "
+    segment = n if segment is None else segment
+    if not supported(segment) or segment > n:
+        raise ValueError(f"the segment must be a power of two in "
+                         f"{MIN_TILE}..N, got {segment} for N={n}")
+    if not 1 <= num_keys <= MAX_LANES or num_payload < 0:
+        raise ValueError(f"the sort takes 1..{MAX_LANES} key lanes and "
+                         f"any number of payload lanes, got {num_keys} "
                          f"keys and {num_payload} payload lanes")
-    tile = min(n, MAX_TILE)
-    passes = (n // tile).bit_length() - 1
+    tile = min(segment, MAX_TILE)
+    passes = (segment // tile).bit_length() - 1
+    gathers = gather_launches(num_payload)
     return SortPlan(
         n=n, num_keys=num_keys, num_payload=num_payload, tile=tile,
-        chunk=tile, passes=passes, smem_bytes=(num_keys + 2) * tile * 4,
-        scratch_words=min(passes, 2) * (num_keys + 1) * n,
-        launches=1 + passes)
+        chunk=tile, passes=passes, segment=segment, gathers=gathers,
+        smem_bytes=(num_keys + 2) * tile * 4,
+        scratch_words=(min(passes, 2) * (num_keys + 1) * n
+                       + (n if gathers else 0)),
+        launches=1 + passes + gathers)
 
 
-def sort_lanes_plain(operands: Sequence[torch.Tensor],
-                     num_keys: int) -> Tuple[torch.Tensor, ...]:
+def sort_lanes_plain(operands: Sequence[torch.Tensor], num_keys: int,
+                     segment: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, ...]:
     """The plain PyTorch version of K1, on any device: stable LSD passes,
-    last key lane first, each an unsigned (widened) ``torch.sort``."""
+    last key lane first, each an unsigned (widened) ``torch.sort``; with
+    ``segment``, the segment number is the first key."""
+    n = operands[0].shape[0]
+    keys = [widen(x) for x in operands[:num_keys]]
+    if segment is not None and segment < n:
+        keys.insert(0, torch.arange(n, device=operands[0].device) // segment)
     perm = None
-    for lane in reversed(operands[:num_keys]):
-        key = widen(lane if perm is None else lane[perm])
-        idx = torch.sort(key, stable=True).indices
+    for key in reversed(keys):
+        idx = torch.sort(key if perm is None else key[perm],
+                         stable=True).indices
         perm = idx if perm is None else perm[idx]
     return tuple(x[perm] for x in operands)
 
@@ -114,20 +142,23 @@ def _check(operands: Sequence[torch.Tensor], num_keys: int) -> None:
         raise ValueError(f"num_keys {num_keys} outside 1..{len(operands)}")
 
 
-def bitonic_sort_lanes(operands: Sequence[torch.Tensor],
-                       num_keys: int) -> Tuple[torch.Tensor, ...]:
+def bitonic_sort_lanes(operands: Sequence[torch.Tensor], num_keys: int,
+                       segment: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, ...]:
     """Sort (N,) int32 lanes by their first ``num_keys`` lanes (unsigned,
-    lexicographic, stable). CPU tensors: the plain version. CUDA tensors:
-    kernel K1, or ``ValueError`` for a shape it cannot take."""
+    lexicographic, stable), each aligned run of ``segment`` rows on its own
+    when given (rows never leave their segment). CPU tensors: the plain
+    version. CUDA tensors: kernel K1, or ``ValueError`` for a shape it
+    cannot take."""
     operands = list(operands)
     _check(operands, num_keys)
     dev = operands[0].device
     if dev.type == "cpu":
-        return sort_lanes_plain(operands, num_keys)
+        return sort_lanes_plain(operands, num_keys, segment)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     n, lanes = operands[0].shape[0], len(operands)
-    plan = plan_sort(n, num_keys, lanes - num_keys)
+    plan = plan_sort(n, num_keys, lanes - num_keys, segment)
     ins = [x.contiguous() for x in operands]
     out = torch.empty((lanes, n), dtype=torch.int32, device=dev)
     scratch = torch.empty(max(plan.scratch_words, 1), dtype=torch.int32,
@@ -139,7 +170,8 @@ def bitonic_sort_lanes(operands: Sequence[torch.Tensor],
     with torch.cuda.device(dev):
         rc = lib.rs_bitonic_sort(
             in_ptrs, lanes, num_keys, n, plan.tile, plan.chunk, plan.passes,
-            plan.smem_bytes, plan.scratch_words, scratch.data_ptr(),
+            plan.segment, plan.smem_bytes, plan.scratch_words,
+            scratch.data_ptr(),
             out_ptrs, ctypes.byref(launches), _build.stream_ptr(dev))
     _build.check(lib, rc, f"bitonic_sort {plan}")
     _build.count_launch("bitonic_sort", launches.value)

@@ -8,6 +8,11 @@
 build. The plain version hashes with widened int64 lanes (each u32 product
 taken mod 2^32 without overflowing int64, ops/lanes.mul32) and ORs the
 masks through a bit plane, since torch has no scatter-OR.
+
+``bloom_build_batched`` is the shard axis (the counterpart of the bloom
+build under ``jax.vmap``): S shards' bitmaps, each shard's rows valid
+below its count. CUDA tensors take one K3 launch for all of them; CPU
+tensors loop ``bloom_build_plain`` over the shards.
 """
 
 from __future__ import annotations
@@ -90,3 +95,26 @@ def bloom_build(key_words_le: torch.Tensor, key_len: torch.Tensor,
 
     return launch_bloom_build(key_words_le, key_len, valid,
                               num_words=num_words)
+
+
+def bloom_build_batched(key_words_le: torch.Tensor, key_len: torch.Tensor,
+                        count: torch.Tensor, *, num_words: int
+                        ) -> torch.Tensor:
+    """The (S, num_words) bloom bitmaps (int32 lanes) of S shards:
+    key_words_le (S, C, 6), key_len (S, C), count (S,) int32, row r of
+    shard s valid when r < count[s]. CPU tensors: ``bloom_build_plain``
+    per shard; CUDA tensors: one K3 launch, the counts read on the device."""
+    dev = key_len.device
+    if dev.type == "cpu":
+        rows = torch.arange(key_len.shape[1], device=dev)
+        return torch.stack([
+            bloom_build_plain(key_words_le[s], key_len[s], rows < count[s],
+                              num_words=num_words)
+            for s in range(key_len.shape[0])]) if key_len.shape[0] else (
+            torch.zeros((0, num_words), dtype=torch.int32, device=dev))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .bloom_kernel import launch_bloom_build_batched
+
+    return launch_bloom_build_batched(key_words_le, key_len, count,
+                                      num_words=num_words)

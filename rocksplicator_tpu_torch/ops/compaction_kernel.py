@@ -19,6 +19,9 @@ plain PyTorch path (``merge_resolve_plain``); on CUDA tensors
 (ops/fused_resolve.py, every phase on the card), ``"bitonic"`` is kernel
 K1 (ops/bitonic_sort.py) for the sort and torch ops for phases 2-4. An
 unknown backend or a shape the kernels cannot take raises.
+``merge_resolve_batched`` is the counterpart of
+``jax.vmap(merge_resolve_kernel)``: S shards in one K2 call, or one
+segmented K1 call and a per-shard torch resolve.
 
 u32 lanes are int32 views (ops/lanes.py): equality works on the views,
 order and arithmetic on the widened int64 values, masked to 32 bits
@@ -28,39 +31,52 @@ wherever the JAX u32 arithmetic wraps.
 from __future__ import annotations
 
 import enum
-import os
+import logging
 from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..utils.flags import FLAGS, define_flag
 from .bitonic_sort import bitonic_sort_lanes, sort_lanes_plain
 from .kv_format import KEY_WORDS
 from .lanes import MASK32, bswap32, narrow, widen
+
+log = logging.getLogger(__name__)
 
 _PUT = 1
 _DELETE = 2
 _MERGE = 3
 
 SORT_BACKENDS = ("fused", "bitonic")
-SORT_BACKEND_ENV = "RSTPU_FLAG_SORT_BACKEND"
-# The reference's ``sort_backend`` flag values → this module's backends.
-# Its "lax" (XLA sort + resolve, the reference's default) has no
-# counterpart on the card: the plain path never runs on CUDA tensors, so
-# "lax", an unset flag and any unknown value all take K2.
+# The JAX package's ``sort_backend`` flag values → this module's backends.
+# Its "lax" (XLA sort + resolve, its default) has no counterpart on the
+# card: the plain path never runs on CUDA tensors, so "lax" and any
+# unknown value take K2.
 _FLAG_TO_BACKEND = {"pallas_fused": "fused", "pallas": "bitonic"}
+
+# The merge-resolve kernel of callers with no per-call choice (the engine
+# seam, the batched service): pallas_fused -> K2, pallas -> K1 + torch
+# resolve, lax -> K2. Env: RSTPU_FLAG_SORT_BACKEND (read at import);
+# at run time: FLAGS.set("sort_backend", ...).
+define_flag("sort_backend", "lax")
 
 __all__ = [
     "MergeKind", "SORT_BACKENDS", "bswap32", "composite_key_lanes",
     "split_composite_lanes", "resolve_decisions", "resolve_sorted_lanes",
-    "merge_resolve_plain", "merge_resolve_kernel", "deployment_sort_backend",
+    "merge_resolve_plain", "merge_resolve_kernel", "merge_resolve_batched",
+    "deployment_sort_backend",
 ]
 
 
 def deployment_sort_backend() -> str:
     """The deployment-wide ``sort_backend`` for callers with no per-call
-    choice (the engine-seam backend, the chunked merge): the reference's
-    flag, read from ``RSTPU_FLAG_SORT_BACKEND`` at each call."""
-    return _FLAG_TO_BACKEND.get(os.environ.get(SORT_BACKEND_ENV), "fused")
+    choice (the engine-seam backend, the chunked merge, the batched
+    service): the ``sort_backend`` flag's value at this call."""
+    value = FLAGS.get("sort_backend")
+    if value not in _FLAG_TO_BACKEND and value != "lax":
+        log.warning("sort_backend flag %r is not one of lax, pallas, "
+                    "pallas_fused: using K2", value)
+    return _FLAG_TO_BACKEND.get(value, "fused")
 
 
 class MergeKind(enum.Enum):
@@ -132,24 +148,27 @@ def _limb_combine(lo16_0, lo16_1, hi16_0, hi16_1):
 
 def resolve_decisions(key_lanes, key_len, valid, vtype, val_len, vw_lanes,
                       *, merge_kind: MergeKind, drop_tombstones: bool,
-                      uniform_klen: bool, key_words: int):
+                      uniform_klen: bool, key_words: int,
+                      segment: Optional[int] = None):
     """Phases 2-3 on merge-ordered lanes: key boundaries and segmented LSM
     resolution. Returns ``(vtype, val_len, vw_lanes, keep,
     overflow_mask_or_None)``; ``keep`` marks each key's representative
     row, ``overflow_mask`` (UINT64_ADD only) marks valid rows whose segment
-    has 2^16 rows or more."""
+    has 2^16 rows or more. With ``segment`` (a shard axis) a key also
+    starts at every shard start."""
     n = valid.shape[0]
     dev = valid.device
     iota = torch.arange(n, device=dev)
     vw_lanes = list(vw_lanes)
+    segment = segment or n
 
     prev_equal = torch.ones(n, dtype=torch.bool, device=dev)
     for w in range(key_words):
         prev_equal &= key_lanes[w] == _shift_prev(key_lanes[w])
     if not uniform_klen:
         prev_equal &= key_len == _shift_prev(key_len)
-    new_key = ~prev_equal | (iota == 0) | ~valid
-    last_key = _shift_next(new_key) | (iota == n - 1)
+    new_key = ~prev_equal | (iota % segment == 0) | ~valid
+    last_key = _shift_next(new_key) | (iota % segment == segment - 1)
 
     is_put = (vtype == _PUT) & valid
     is_del = (vtype == _DELETE) & valid
@@ -227,16 +246,20 @@ def resolve_sorted_lanes(
     vtype: torch.Tensor,
     val_len: torch.Tensor,
     vw_lanes: List[torch.Tensor],
-    klen_const: torch.Tensor,           # 0-dim int32 (uniform_klen)
+    klen_const: torch.Tensor,           # int32, 0-dim or (S,) (uniform_klen)
     *,
     merge_kind: MergeKind,
     drop_tombstones: bool,
     uniform_klen: bool,
     seq32: bool,
     key_words: int,
+    segment: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Phases 2-4 on already merge-ordered lanes: boundaries, segmented
-    resolution, stable stream compaction. Returns the output dict."""
+    resolution, stable stream compaction. Returns the output dict. With
+    ``segment`` the rows are shards of ``segment`` rows, each compacted in
+    place (shard s's kept rows at [s * segment, + count[s])); ``count``,
+    ``needs_cpu_fallback`` and ``klen_const`` are then (S,)."""
     n = seq_lo.shape[0]
     dev = seq_lo.device
     n_val_words = len(vw_lanes)
@@ -245,14 +268,28 @@ def resolve_sorted_lanes(
     vtype, val_len, vw_lanes, keep, overflow_mask = resolve_decisions(
         key_lanes, key_len, valid, vtype, val_len, vw_lanes,
         merge_kind=merge_kind, drop_tombstones=drop_tombstones,
-        uniform_klen=uniform_klen, key_words=key_words)
-    overflow_risk = (overflow_mask.any() if overflow_mask is not None
-                     else torch.zeros((), dtype=torch.bool, device=dev))
-
-    # stable stream compaction: kept rows first, in their sorted order
-    order = torch.sort((~keep).to(torch.int32), stable=True).indices
-    count = keep.sum().to(torch.int32)
-    live = torch.arange(n, device=dev) < count
+        uniform_klen=uniform_klen, key_words=key_words, segment=segment)
+    iota = torch.arange(n, device=dev)
+    if segment is None:
+        overflow_risk = (overflow_mask.any() if overflow_mask is not None
+                         else torch.zeros((), dtype=torch.bool, device=dev))
+        # stable stream compaction: kept rows first, in their sorted order
+        order = torch.sort((~keep).to(torch.int32), stable=True).indices
+        count = keep.sum().to(torch.int32)
+        live = iota < count
+    else:
+        shards = n // segment
+        overflow_risk = (
+            overflow_mask.view(shards, segment).any(1)
+            if overflow_mask is not None
+            else torch.zeros(shards, dtype=torch.bool, device=dev))
+        # per shard: kept rows first, the shard's rows staying in place
+        shard = iota // segment
+        order = torch.sort(2 * shard + (~keep).to(torch.int64),
+                           stable=True).indices
+        count = keep.view(shards, segment).sum(1).to(torch.int32)
+        live = iota % segment < count[shard]
+        klen_const = klen_const[shard]
 
     def m1(a: torch.Tensor) -> torch.Tensor:
         return torch.where(live, a[order], torch.zeros_like(a))
@@ -284,12 +321,18 @@ def resolve_sorted_lanes(
 def _merge_resolve(key_words_be, key_len, seq_hi, seq_lo, vtype, val_words,
                    val_len, valid, *, sort: Callable, merge_kind: MergeKind,
                    drop_tombstones: bool, uniform_klen: bool, seq32: bool,
-                   key_words: int) -> Dict[str, torch.Tensor]:
-    """Composite sort with ``sort`` (lanes, num_keys), then the torch
-    resolve of phases 2-4."""
+                   key_words: int, segment: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Composite sort with ``sort`` (lanes, num_keys, segment), then the
+    torch resolve of phases 2-4, shard by shard with ``segment``."""
     n_val_words = val_words.shape[1]
-    # uniform_klen reconstruction constant: the one valid key length
-    klen_const = narrow(torch.where(valid, widen(key_len), 0).max())
+    # uniform_klen reconstruction constant: the one valid key length (per
+    # shard)
+    klens = torch.where(valid, widen(key_len), 0)
+    if segment is None:
+        klen_const = narrow(klens.max())
+    else:
+        klen_const = narrow(klens.view(-1, segment).max(1).values)
     invalid = (~valid).to(torch.int32)
     operands = composite_key_lanes(
         invalid, [key_words_be[:, w] for w in range(key_words)],
@@ -297,14 +340,15 @@ def _merge_resolve(key_words_be, key_len, seq_hi, seq_lo, vtype, val_words,
     num_keys = len(operands)
     operands += [vtype, val_len] + [val_words[:, w]
                                     for w in range(n_val_words)]
-    lanes = sort([x.contiguous() for x in operands], num_keys)
+    lanes = sort([x.contiguous() for x in operands], num_keys, segment)
     key_lanes, klen_s, shi_s, slo_s, valid_s, pos = split_composite_lanes(
         lanes, key_words, uniform_klen=uniform_klen, seq32=seq32)
     return resolve_sorted_lanes(
         key_lanes, klen_s, shi_s, slo_s, valid_s, lanes[pos],
         lanes[pos + 1], list(lanes[pos + 2:]), klen_const,
         merge_kind=merge_kind, drop_tombstones=drop_tombstones,
-        uniform_klen=uniform_klen, seq32=seq32, key_words=key_words)
+        uniform_klen=uniform_klen, seq32=seq32, key_words=key_words,
+        segment=segment)
 
 
 def check_lanes(key_words_be, key_len, seq_hi, seq_lo, vtype, val_words,
@@ -393,3 +437,57 @@ def merge_resolve_kernel(key_words_be, key_len, seq_hi, seq_lo, vtype,
     return _merge_resolve(key_words_be, key_len, seq_hi, seq_lo, vtype,
                           val_words, val_len, valid,
                           sort=bitonic_sort_lanes, **flags)
+
+
+def merge_resolve_batched(key_words_be, key_len, seq_hi, seq_lo, vtype,
+                          val_words, val_len, valid, *,
+                          merge_kind: MergeKind = MergeKind.UINT64_ADD,
+                          drop_tombstones: bool = True,
+                          uniform_klen: bool = False, seq32: bool = False,
+                          key_words: int = KEY_WORDS,
+                          sort_backend: str = "fused"
+                          ) -> Dict[str, torch.Tensor]:
+    """Merge-resolve S shards of capacity C at once — the counterpart of
+    ``jax.vmap(merge_resolve_kernel)``. Inputs carry a leading shard axis:
+    key_words_be (S, C, 6), val_words (S, C, W), the other lanes (S, C);
+    the static flags hold for every shard. Returns (S, C, ...) outputs,
+    shard s's first ``count[s]`` rows live, with ``count`` (S,) int32 and
+    ``needs_cpu_fallback`` (S,) bool.
+
+    CPU tensors: ``merge_resolve_plain`` shard by shard (the plain
+    version). CUDA tensors: ONE K2 call over the S * C rows
+    (``"fused"``), or one segmented K1 sort and the torch resolve shard by
+    shard in the same ops (``"bitonic"``); no loop over shards."""
+    if sort_backend not in SORT_BACKENDS:
+        raise ValueError(f"sort_backend {sort_backend!r} is not one of "
+                         f"{SORT_BACKENDS}")
+    if key_len.dim() != 2:
+        raise TypeError(f"key_len: expected (S, C), got "
+                        f"{tuple(key_len.shape)}")
+    shards, cap = key_len.shape
+    if shards < 1:
+        raise ValueError("merge_resolve_batched needs at least one shard")
+    flat = [x.reshape((shards * cap,) + tuple(x.shape[2:])) for x in (
+        key_words_be, key_len, seq_hi, seq_lo, vtype, val_words, val_len,
+        valid)]
+    check_lanes(*flat, key_words)
+    flags = dict(merge_kind=merge_kind, drop_tombstones=drop_tombstones,
+                 uniform_klen=uniform_klen, seq32=seq32, key_words=key_words)
+    dev = seq_lo.device
+    if dev.type == "cpu":
+        per = [merge_resolve_plain(*(x[s] for x in (
+            key_words_be, key_len, seq_hi, seq_lo, vtype, val_words,
+            val_len, valid)), **flags) for s in range(shards)]
+        return {k: torch.stack([o[k] for o in per]) for k in per[0]}
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if sort_backend == "fused":
+        from .fused_resolve import fused_merge_resolve
+
+        out = fused_merge_resolve(*flat, segment=cap, **flags)
+    else:
+        out = _merge_resolve(*flat, sort=bitonic_sort_lanes, segment=cap,
+                             **flags)
+    return {k: v if k in ("count", "needs_cpu_fallback")
+            else v.view((shards, cap) + tuple(v.shape[1:]))
+            for k, v in out.items()}

@@ -5,6 +5,8 @@
 // point for ctypes. The name stays K1's so that the JAX counterpart and
 // the measurements keep one name.
 
+#include <vector>
+
 #include "merge_sort.cuh"
 
 extern "C" {
@@ -14,34 +16,40 @@ const char* rs_error_string(int err) {
 }
 
 // ins / outs: host arrays of num_lanes device pointers to (n,) u32 lanes;
-// the first num_keys are the keys. The plan comes from the wrapper
-// (ops/bitonic_sort.py plan_sort); scratch holds its scratch_words. Adds
-// the CUDA launches it makes to *launches.
+// the first num_keys (at most 16) are the keys, the payload lanes may be
+// any number. With segment < n each aligned run of `segment` rows sorts on
+// its own. The plan comes from the wrapper (ops/bitonic_sort.py
+// plan_sort); scratch holds its scratch_words: the sort buffers, then the
+// index lane when the payload spans more than one gather group. Adds the
+// CUDA launches it makes to *launches.
 int rs_bitonic_sort(void* const* ins, int num_lanes, int num_keys, int n,
-                    int tile, int chunk, int passes, int smem,
+                    int tile, int chunk, int passes, int segment, int smem,
                     int64_t scratch_words, void* scratch, void* const* outs,
                     int* launches, void* stream) {
-  if (num_lanes < 1 || num_lanes > rs::kMaxLanes || num_keys < 1 ||
+  if (num_lanes < 1 || num_keys < 1 || num_keys > rs::kMaxLanes ||
       num_keys > num_lanes)
     return rs::kErrShape;
-  const rs::SortPlan plan{n, num_keys, num_lanes - num_keys, tile, chunk,
-                          passes, smem, scratch_words};
+  const rs::SortPlan plan{n,      num_keys, num_lanes - num_keys, tile,
+                          chunk,  passes,   segment,              smem,
+                          scratch_words};
   if (!rs::plan_ok(plan)) return rs::kErrPlan;
-  rs::LaneIn keys{}, payload{};
+  rs::LaneIn keys{};
   rs::LaneOut out{};
+  std::vector<rs::PayLane> pay(num_lanes - num_keys);
   for (int l = 0; l < num_lanes; ++l) {
-    out.p[l] = static_cast<uint32_t*>(outs[l]);
     const uint32_t* p = static_cast<const uint32_t*>(ins[l]);
+    uint32_t* o = static_cast<uint32_t*>(outs[l]);
     if (l < num_keys) {
       keys.p[l] = p;
       keys.stride[l] = 1;
+      out.p[l] = o;
     } else {
-      payload.p[l - num_keys] = p;
-      payload.stride[l - num_keys] = 1;
+      pay[l - num_keys] = rs::PayLane{p, 1, o};
     }
   }
+  uint32_t* buf = static_cast<uint32_t*>(scratch);
   return static_cast<int>(rs::merge_sort_device(
-      keys, payload, out, plan, static_cast<uint32_t*>(scratch),
+      keys, out, pay.data(), plan, buf, buf + rs::sort_buffer_words(plan),
       static_cast<cudaStream_t>(stream), launches));
 }
 

@@ -13,8 +13,13 @@
 // for valid rows only. Invalid rows set nothing (the JAX version sends them
 // to a spill word it drops). The bitmap must be zeroed by the caller.
 //
-// Bound on the card: memory — 6+1 words and one flag byte read per row, the
-// bitmap written once; the atomics hit L2.
+// A shard axis: rs_bloom_build_batched takes S shards of C rows and builds
+// S bitmaps of num_words in one launch; row r of shard s is valid when r <
+// count[s], read on the device (the counts K2 left there), so nothing is
+// read back first.
+//
+// Bound on the card: memory — 6+1 words and one flag byte (or one count)
+// read per row, the bitmap written once; the atomics hit L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,13 +42,20 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
+// Rows are shards of `seg` rows; row i is valid when valid[i] (a byte
+// mask) or, with valid null, when i % seg < count[i / seg]. Shard s ORs
+// into bitmap[s * num_words ...].
 __global__ void bloom_build_kernel(const uint32_t* __restrict__ kw_le,
                                    const uint32_t* __restrict__ key_len,
-                                   const uint8_t* __restrict__ valid, int n,
-                                   uint32_t num_words,
+                                   const uint8_t* __restrict__ valid,
+                                   const uint32_t* __restrict__ count,
+                                   int64_t n, int64_t seg, uint32_t num_words,
                                    uint32_t* __restrict__ bitmap) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !valid[i]) return;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t s = i / seg;
+  if (valid ? !valid[i] : (uint64_t)(i - s * seg) >= __ldg(count + s))
+    return;
   uint32_t h = kFnvOffset;
   const uint32_t* w = kw_le + (int64_t)i * kKeyWords;
 #pragma unroll
@@ -54,7 +66,7 @@ __global__ void bloom_build_kernel(const uint32_t* __restrict__ kw_le,
   uint32_t mask = 0;
 #pragma unroll
   for (int j = 0; j < kKBits; ++j) mask |= 1u << ((h2 >> (5 * j)) & 31u);
-  atomicOr(bitmap + (h1 % num_words), mask);
+  atomicOr(bitmap + s * num_words + (h1 % num_words), mask);
 }
 
 }  // namespace
@@ -76,7 +88,26 @@ int rs_bloom_build(const void* kw_le, const void* key_len, const void* valid,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(kw_le),
       static_cast<const uint32_t*>(key_len),
-      static_cast<const uint8_t*>(valid), n,
+      static_cast<const uint8_t*>(valid), nullptr, n, n,
+      static_cast<uint32_t>(num_words), static_cast<uint32_t*>(bitmap));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S shards of seg rows: kw_le (S * seg, 6) u32, key_len (S * seg,) u32,
+// count (S,) u32 on the device; bitmap (S, num_words) u32, zeroed.
+int rs_bloom_build_batched(const void* kw_le, const void* key_len,
+                           const void* count, int shards, int seg,
+                           int num_words, void* bitmap, void* stream) {
+  if (shards < 0 || seg < 1 || num_words < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = (int64_t)shards * seg;
+  if (n == 0) return 0;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  bloom_build_kernel<<<(unsigned)blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(kw_le),
+      static_cast<const uint32_t*>(key_len), nullptr,
+      static_cast<const uint32_t*>(count), n, seg,
       static_cast<uint32_t>(num_words), static_cast<uint32_t*>(bitmap));
   return static_cast<int>(cudaGetLastError());
 }

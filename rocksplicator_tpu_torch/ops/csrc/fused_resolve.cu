@@ -4,15 +4,17 @@
 // Replaces rocksplicator_tpu/ops/pallas_resolve.py fused_merge_resolve (the
 // pallas_call at :277), whose body _fused_kernel keeps every lane in VMEM
 // and expresses scans and fills as shift ladders. Here one call is 4 +
-// passes CUDA launches on one stream:
-//   0. one cudaMemsetAsync of the status words (meta, tile counter,
-//      look-back flags);
+// passes (+ gathers) CUDA launches on one stream:
+//   0. one cudaMemsetAsync of the status words (tile counter, per-shard
+//      meta, look-back flags);
 //   1. build_keys: the composite key lanes (invalid, key words, [klen],
-//      [~seq_hi], ~seq_lo) and the uniform-klen constant (max key length
-//      over valid rows);
+//      [~seq_hi], ~seq_lo) and each shard's uniform-klen constant (max key
+//      length over its valid rows);
 //   2. the K1 merge sort (merge_sort.cuh) over those keys and a row index;
 //      its last launch gathers the payload (vtype, val_len, value words)
-//      straight from the inputs into sorted order;
+//      straight from the inputs into sorted order, 16 lanes of it, and
+//      gather_lanes launches move the rest of a wide value 16 lanes at a
+//      time, so values of any width W go through;
 //   3. resolve_compact, one pass with two single-pass scans with decoupled
 //      look-back, a warp reading 32 earlier tiles at a time (tile ids from
 //      an atomic counter, so no block waits on one that has not started):
@@ -28,11 +30,21 @@
 //      - the kept row (the segment's first, newest row, resolved) is
 //        written at its rank; each tile zeroes its share of the rows at or
 //        past count, so the outputs need no fill.
+// A shard axis (the counterpart of jax.vmap over merge_resolve_kernel): S
+// shards of capacity C come as S * C rows with segment = C. The sort's
+// passes stop at runs of C rows, so each shard sorts in place; a resolve
+// tile is at most C rows (256 threads x 8, or C / 8 threads), so no tile
+// spans two shards; a key segment starts at every shard start; both
+// look-backs stop at the shard's first tile, so the keep ranks restart per
+// shard; count, overflow flag and key length are per shard. One call
+// compacts the whole group. Unbatched, segment = n and S = 1.
 // No library sort, scan or GEMM.
 //
 // Bound on the card: memory and launches. The sort dominates (see
 // merge_sort.cuh); resolve_compact reads each sorted lane about once and
 // writes each output once.
+
+#include <vector>
 
 #include "merge_sort.cuh"
 
@@ -45,11 +57,15 @@ constexpr int kResolveThreads = 256;
 constexpr int kResolveRows = kResolveThreads * rs::kItems;
 constexpr int kAccLanes = 7;  // 4 limbs, operand, first-base PUT / DELETE
 constexpr int kSegWords = 2 + kAccLanes;
+constexpr int kStatusHead = 4;  // the tile counter, then padding
+constexpr int kMetaWords = 4;   // per shard: count, overflow, klen, unused
 
 struct Layout {
   int n, num_lanes, num_keys, key_words, val_words;
   int klen_pos, shi_pos;  // -1 when the lane is dropped
   int slo_pos, vt_pos, vlen_pos, vw_pos;
+  int seg;                // rows of one shard (n when unbatched)
+  int tile_rows;          // rows of one resolve tile: min(seg, 2048)
 };
 
 struct Outputs {
@@ -180,29 +196,30 @@ __device__ T block_exclusive_scan(T v, T* tot, T* total) {
 // aggregate, then reads the flags of the 32 tiles before a window's end at
 // once, folds the window back to its nearest tile that has an inclusive
 // prefix (or moves the window 32 tiles back), publishes its own inclusive
-// prefix and returns the prefix of the tiles before it. flags[t]: 0
-// nothing yet, 1 aggregate, 2 inclusive prefix. Every lane returns it.
+// prefix and returns the prefix of the tiles before it, back to `first`,
+// the first tile of its shard. flags[t]: 0 nothing yet, 1 aggregate, 2
+// inclusive prefix. Every lane returns it.
 template <class T>
-__device__ T look_back(int tile, const T& agg, volatile uint32_t* flags,
-                       T* aggs, T* incls) {
+__device__ T look_back(int tile, int first, const T& agg,
+                       volatile uint32_t* flags, T* aggs, T* incls) {
   const int lane = threadIdx.x & 31;
-  if (tile > 0 && lane == 0) {
+  if (tile > first && lane == 0) {
     store_cg(aggs + tile, agg);
     __threadfence();
     flags[tile] = 1u;
   }
   T prefix{};
-  for (int end = tile; end > 0; end -= 32) {
+  for (int end = tile; end > first; end -= 32) {
     const int t = end - 32 + lane;  // lane 31 is the nearest tile
-    uint32_t f = 2u;                // tiles before 0: the identity
-    if (t >= 0) {
+    uint32_t f = 2u;                // tiles before first: the identity
+    if (t >= first) {
       do {
         f = flags[t];
       } while (f == 0u);
     }
     __threadfence();
     T v{};
-    if (t >= 0) v = f == 2u ? load_cg(incls + t) : load_cg(aggs + t);
+    if (t >= first) v = f == 2u ? load_cg(incls + t) : load_cg(aggs + t);
     const unsigned done = __ballot_sync(0xffffffffu, f == 2u);
     if (done && lane < 31 - __clz(done)) v = T{};
 #pragma unroll
@@ -243,8 +260,9 @@ __device__ __forceinline__ void load_rows(const uint32_t* p,
 }
 
 // Rows row0 .. row0 + kItems - 1 (row0 < n, a multiple of kItems). A row
-// starts a key when it is row 0, padding, or its key (words [, length])
-// differs from the row before; the row at n counts as a start.
+// starts a key when it starts a shard, is padding, or its key (words [,
+// length]) differs from the row before; the row at a shard's end counts as
+// a start.
 __device__ Rows read_rows(const uint32_t* lanes, const Layout& L,
                           int64_t row0, bool uint64_add) {
   static_assert(rs::kItems == 8, "read_rows loads two uint4 per lane");
@@ -256,8 +274,10 @@ __device__ Rows read_rows(const uint32_t* lanes, const Layout& L,
   R.invalid = 0u;
 #pragma unroll
   for (int k = 0; k < rs::kItems; ++k) R.invalid |= (uint32_t)(v[k] != 0u) << k;
-  uint32_t starts = R.invalid | (row0 == 0 ? 1u : 0u);
-  if (!has_next || lanes[row0 + rs::kItems] != 0u) starts |= 1u << rs::kItems;
+  uint32_t starts = R.invalid | (row0 % L.seg == 0 ? 1u : 0u);
+  if (!has_next || (row0 + rs::kItems) % L.seg == 0 ||
+      lanes[row0 + rs::kItems] != 0u)
+    starts |= 1u << rs::kItems;
   // key word lanes, then the length lane when it is kept: lanes 1 ..
   const int key_lanes = L.key_words + (L.klen_pos >= 0 ? 1 : 0);
   for (int w = 0; w < key_lanes; ++w) {
@@ -367,17 +387,18 @@ __device__ __forceinline__ uint32_t bswap32(uint32_t w) {
   return __byte_perm(w, 0, 0x0123);
 }
 
-// Output row p: the segment's representative row s, resolved. Every word
-// of row s is loaded before the first store.
+// Output row p: the segment's representative row s, resolved; `meta` is
+// its shard's. Every key word and the first 16 value words of row s are
+// loaded before the first store; wider values go on 16 words at a time.
 __device__ void write_row(const uint32_t* lanes, const Layout& L,
                           const Outputs& o, const uint32_t* meta, int64_t p,
                           uint32_t s, const Decision& d) {
-  uint32_t kw[kKeyWords], vw[rs::kMaxLanes];
+  uint32_t kw[kKeyWords], vw[rs::kGroup];
 #pragma unroll
   for (int w = 0; w < kKeyWords; ++w)
     kw[w] = w < L.key_words ? __ldg(lanes + (int64_t)(1 + w) * L.n + s) : 0u;
 #pragma unroll
-  for (int w = 0; w < rs::kMaxLanes; ++w)
+  for (int w = 0; w < rs::kGroup; ++w)
     if (w < L.val_words)
       vw[w] = __ldg(lanes + (int64_t)(L.vw_pos + w) * L.n + s);
   const uint32_t klen =
@@ -403,8 +424,17 @@ __device__ void write_row(const uint32_t* lanes, const Layout& L,
   o.vtype[p] = d.vt;
   o.val_len[p] = vlen;
 #pragma unroll
-  for (int w = 0; w < rs::kMaxLanes; ++w)
+  for (int w = 0; w < rs::kGroup; ++w)
     if (w < L.val_words) o.val_words[p * L.val_words + w] = vw[w];
+  for (int w0 = rs::kGroup; w0 < L.val_words; w0 += rs::kGroup) {
+#pragma unroll
+    for (int w = 0; w < rs::kGroup; ++w)
+      if (w0 + w < L.val_words)
+        vw[w] = __ldg(lanes + (int64_t)(L.vw_pos + w0 + w) * L.n + s);
+#pragma unroll
+    for (int w = 0; w < rs::kGroup; ++w)
+      if (w0 + w < L.val_words) o.val_words[p * L.val_words + w0 + w] = vw[w];
+  }
 }
 
 // Zeroes rows [lo, hi) of every output, each array as one flat range of
@@ -426,7 +456,7 @@ __global__ void build_keys(const uint32_t* __restrict__ kw_be,
                            const uint32_t* __restrict__ seq_lo,
                            const uint8_t* __restrict__ valid, Layout L,
                            uint32_t* __restrict__ keys,
-                           uint32_t* __restrict__ meta) {
+                           uint32_t* __restrict__ status) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t kl = 0;
   if (i < L.n) {
@@ -441,13 +471,16 @@ __global__ void build_keys(const uint32_t* __restrict__ kw_be,
     out[L.slo_pos * n] = ~seq_lo[i];
     kl = v ? key_len[i] : 0u;
   }
+  // a warp's 32 rows lie in one shard (seg >= 256)
   kl = __reduce_max_sync(0xffffffffu, kl);
-  if ((threadIdx.x & 31) == 0 && kl) atomicMax(meta + 2, kl);
+  if ((threadIdx.x & 31) == 0 && kl)
+    atomicMax(status + kStatusHead + (i / L.seg) * kMetaWords + 2, kl);
 }
 
-// Status words at the head of the scratch: meta[4] (count, overflow flag,
-// uniform key length, unused), the tile counter, padding, then the two
-// look-back flag arrays. The memset zeroes exactly these.
+// Status words at the head of the scratch: the tile counter and padding
+// (kStatusHead words), each shard's meta (kMetaWords: count, overflow flag,
+// uniform key length, unused), then the two look-back flag arrays. The
+// memset zeroes exactly these. Launched with tile_rows / kItems threads.
 __global__ void __launch_bounds__(kResolveThreads)
     resolve_compact(const uint32_t* __restrict__ lanes, Layout L,
                     uint32_t* status, int ntiles, Seg* seg_aggs,
@@ -459,19 +492,23 @@ __global__ void __launch_bounds__(kResolveThreads)
   __shared__ Seg seg_prefix;
   __shared__ uint32_t keep_prefix;
   __shared__ int tile_s;
-  uint32_t* meta = status;
-  volatile uint32_t* seg_flags = status + 8;
+  const int shards = L.n / L.seg;
+  volatile uint32_t* seg_flags = status + kStatusHead + shards * kMetaWords;
   volatile uint32_t* keep_flags = seg_flags + ntiles;
   const int tid = threadIdx.x;
-  if (tid == 0) tile_s = (int)atomicAdd(status + 4, 1u);
+  if (tid == 0) tile_s = (int)atomicAdd(status, 1u);
   __syncthreads();
   const int tile = tile_s;
-  const int64_t n = L.n;
-  const int64_t tile0 = (int64_t)tile * kResolveRows;
+  const int tiles_per_shard = L.seg / L.tile_rows;
+  const int shard = tile / tiles_per_shard;
+  const int first = shard * tiles_per_shard;  // the shard's first tile
+  uint32_t* meta = status + kStatusHead + shard * kMetaWords;
+  const int64_t shard0 = (int64_t)shard * L.seg;
+  const int64_t tile0 = (int64_t)tile * L.tile_rows;
   const int64_t row0 = tile0 + (int64_t)tid * rs::kItems;
   const bool add = uint64_add != 0, drop = drop_tombstones != 0;
 
-  const bool active = row0 < n;
+  const bool active = row0 < L.n;
   Rows R;
   Seg agg{};
   if (active) {
@@ -483,7 +520,8 @@ __global__ void __launch_bounds__(kResolveThreads)
   Seg seg_total;
   const Seg seg_excl = block_exclusive_scan(agg, seg_tot, &seg_total);
   if (tid < 32) {
-    const Seg p = look_back(tile, seg_total, seg_flags, seg_aggs, seg_incls);
+    const Seg p =
+        look_back(tile, first, seg_total, seg_flags, seg_aggs, seg_incls);
     if (tid == 0) seg_prefix = p;
   }
   __syncthreads();
@@ -507,14 +545,14 @@ __global__ void __launch_bounds__(kResolveThreads)
   const uint32_t keep_excl =
       block_exclusive_scan((uint32_t)__popc(keep_mask), keep_tot, &tile_kept);
   if (tid < 32) {
-    const uint32_t p =
-        look_back(tile, tile_kept, keep_flags, keep_aggs, keep_incls);
+    const uint32_t p = look_back(tile, first, tile_kept, keep_flags,
+                                 keep_aggs, keep_incls);
     if (tid == 0) keep_prefix = p;
   }
   __syncthreads();
 
   if (keep_mask) {
-    int64_t rank = keep_prefix + keep_excl;
+    int64_t rank = shard0 + keep_prefix + keep_excl;
     Seg run = run0;
 #pragma unroll
     for (int k = 0; k < rs::kItems; ++k) {
@@ -525,16 +563,17 @@ __global__ void __launch_bounds__(kResolveThreads)
     }
   }
 
-  // Rows at or past count: tile t zeroes as many as it has unkept rows,
-  // counted down from the end after the earlier tiles' share.
-  const int64_t rows = n - tile0 < kResolveRows ? n - tile0 : kResolveRows;
-  const int64_t hi = n - (tile0 - keep_prefix);
-  zero_rows(L, o, hi - (rows - tile_kept), hi);
-  if (tile == ntiles - 1 && tid == 0) meta[0] = keep_prefix + tile_kept;
+  // Rows at or past the shard's count: tile t zeroes as many as it has
+  // unkept rows, counted down from the shard's end after the earlier
+  // tiles' share.
+  const int64_t hi = shard0 + L.seg - (tile0 - shard0 - keep_prefix);
+  zero_rows(L, o, hi - (L.tile_rows - tile_kept), hi);
+  if (tile == first + tiles_per_shard - 1 && tid == 0)
+    meta[0] = keep_prefix + tile_kept;
 }
 
 Layout make_layout(int n, int val_words, int key_words, int uniform_klen,
-                   int seq32) {
+                   int seq32, int seg) {
   Layout L;
   L.n = n;
   L.key_words = key_words;
@@ -548,6 +587,8 @@ Layout make_layout(int n, int val_words, int key_words, int uniform_klen,
   L.vlen_pos = pos++;
   L.vw_pos = pos;
   L.num_lanes = pos + val_words;
+  L.seg = seg;
+  L.tile_rows = seg < kResolveRows ? seg : kResolveRows;
   return L;
 }
 
@@ -562,37 +603,48 @@ const char* rs_error_string(int err) {
 }
 
 // Inputs: kw_be (n, 6), key_len, seq_hi, seq_lo, vtype, val_words
-// (n, val_words), val_len as u32; valid as bytes 0/1. Outputs: the same
-// lanes, kw_le (n, 6) besides, every row written. The sort plan and the
-// scratch size come from the wrapper (ops/fused_resolve.py plan_fused);
-// the scratch layout is: status words (meta[0] = count, meta[1] =
-// overflow flag, meta[2] = uniform key length), look-back values, the
-// sorted lanes, two sort buffers. Adds the CUDA launches it makes
-// (the memset included) to *launches.
+// (n, val_words), val_len as u32; valid as bytes 0/1. The n rows are
+// n / segment shards of `segment` rows (segment = n: one shard), each
+// merged and resolved on its own. Outputs: the same lanes, kw_le (n, 6)
+// besides, every row written, shard s's rows at [s * segment, + count_s).
+// The sort plan and the scratch size come from the wrapper
+// (ops/fused_resolve.py plan_fused); the scratch layout is: status words
+// (the tile counter, then per shard: count, overflow flag, uniform key
+// length, unused; then the look-back flags), look-back values, the sorted
+// lanes, two sort buffers, and the index lane when the value words span
+// more than one gather group. Adds the CUDA launches it makes (the memset
+// included) to *launches.
 int rs_fused_merge_resolve(
     const void* kw_be, const void* key_len, const void* seq_hi,
     const void* seq_lo, const void* vtype, const void* val_words,
     const void* val_len, const void* valid, int n, int n_val_words,
     int key_words, int uniform_klen, int seq32, int uint64_add,
-    int drop_tombstones, int tile, int chunk, int passes, int smem,
-    int64_t scratch_words, void* o_kw_be, void* o_kw_le, void* o_key_len,
-    void* o_seq_hi, void* o_seq_lo, void* o_vtype, void* o_val_words,
-    void* o_val_len, void* scratch, int* launches, void* stream) {
-  const Layout L =
-      make_layout(n, n_val_words, key_words, uniform_klen, seq32);
+    int drop_tombstones, int segment, int tile, int chunk, int passes,
+    int smem, int64_t scratch_words, void* o_kw_be, void* o_kw_le,
+    void* o_key_len, void* o_seq_hi, void* o_seq_lo, void* o_vtype,
+    void* o_val_words, void* o_val_len, void* scratch, int* launches,
+    void* stream) {
+  const Layout L = make_layout(n, n_val_words, key_words, uniform_klen,
+                               seq32, segment);
   if (n < rs::kMinTile || (n & (n - 1)) != 0 || key_words < 1 ||
       key_words > kKeyWords || n_val_words < 1 ||
-      L.num_lanes > rs::kMaxLanes)
+      L.num_keys > rs::kMaxLanes || segment < rs::kMinTile ||
+      (segment & (segment - 1)) != 0 || segment > n)
     return rs::kErrShape;
-  const int ntiles = (n + kResolveRows - 1) / kResolveRows;
-  const int64_t status_words = round4(8 + 2 * (int64_t)ntiles);
+  const int shards = n / segment;
+  const int ntiles = n / L.tile_rows;
+  const int num_payload = L.num_lanes - L.num_keys;
+  const int64_t status_words =
+      round4(kStatusHead + (int64_t)kMetaWords * shards + 2 * (int64_t)ntiles);
   const int64_t look_words = round4((int64_t)ntiles * 2 * (kSegWords + 1));
-  const int64_t sort_words = 2 * (int64_t)(L.num_keys + 1) * n;
-  if (scratch_words !=
-      status_words + look_words + (int64_t)L.num_lanes * n + sort_words)
+  const int64_t buf_words = 2 * (int64_t)(L.num_keys + 1) * n;
+  const int64_t index_words = rs::gather_launches(num_payload) ? n : 0;
+  if (scratch_words != status_words + look_words +
+                           (int64_t)L.num_lanes * n + buf_words + index_words)
     return rs::kErrScratch;
-  const rs::SortPlan plan{n, L.num_keys, L.num_lanes - L.num_keys, tile,
-                          chunk, passes, smem, sort_words};
+  const rs::SortPlan plan{n,     L.num_keys, num_payload, tile,
+                          chunk, passes,     segment,     smem,
+                          buf_words + index_words};
   if (!rs::plan_ok(plan)) return rs::kErrPlan;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -604,6 +656,7 @@ int rs_fused_merge_resolve(
   uint32_t* lanes = status + status_words + look_words;
   uint32_t* sort_buf = lanes + (int64_t)L.num_lanes * n;
   uint32_t* keys = sort_buf + (int64_t)(L.num_keys + 1) * n;  // buffer 1
+  uint32_t* index = sort_buf + buf_words;
   cudaError_t err;
 
   if ((err = cudaMemsetAsync(status, 0, status_words * sizeof(uint32_t),
@@ -620,22 +673,25 @@ int rs_fused_merge_resolve(
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ++*launches;
 
-  rs::LaneIn kin{}, payload{};
+  rs::LaneIn kin{};
   rs::LaneOut out{};
-  for (int l = 0; l < L.num_lanes; ++l) out.p[l] = lanes + (int64_t)l * n;
   for (int l = 0; l < L.num_keys; ++l) {
     kin.p[l] = keys + (int64_t)l * n;
     kin.stride[l] = 1;
+    out.p[l] = lanes + (int64_t)l * n;
   }
-  payload.p[0] = static_cast<const uint32_t*>(vtype);
-  payload.p[1] = static_cast<const uint32_t*>(val_len);
-  payload.stride[0] = payload.stride[1] = 1;
+  std::vector<rs::PayLane> pay(num_payload);
+  for (int q = 0; q < num_payload; ++q)
+    pay[q].out = lanes + (int64_t)(L.num_keys + q) * n;
+  pay[0].p = static_cast<const uint32_t*>(vtype);
+  pay[1].p = static_cast<const uint32_t*>(val_len);
+  pay[0].stride = pay[1].stride = 1;
   for (int w = 0; w < n_val_words; ++w) {
-    payload.p[2 + w] = static_cast<const uint32_t*>(val_words) + w;
-    payload.stride[2 + w] = n_val_words;
+    pay[2 + w].p = static_cast<const uint32_t*>(val_words) + w;
+    pay[2 + w].stride = n_val_words;
   }
-  if ((err = rs::merge_sort_device(kin, payload, out, plan, sort_buf, s,
-                                   launches)) != cudaSuccess)
+  if ((err = rs::merge_sort_device(kin, out, pay.data(), plan, sort_buf,
+                                   index, s, launches)) != cudaSuccess)
     return err;
 
   const Outputs o{static_cast<uint32_t*>(o_kw_be),
@@ -646,7 +702,7 @@ int rs_fused_merge_resolve(
                   static_cast<uint32_t*>(o_vtype),
                   static_cast<uint32_t*>(o_val_words),
                   static_cast<uint32_t*>(o_val_len)};
-  resolve_compact<<<ntiles, kResolveThreads, 0, s>>>(
+  resolve_compact<<<ntiles, L.tile_rows / rs::kItems, 0, s>>>(
       lanes, L, status, ntiles, seg_aggs, seg_incls, keep_aggs, keep_incls,
       uint64_add, drop_tombstones, o);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -9,7 +9,9 @@
 // decides the order:
 //   * only the num_keys key lanes and one u32 row-index lane are sorted;
 //     the payload lanes move once, gathered through the index by the last
-//     launch (the "final" sink);
+//     launch (the "final" sink), kGroup lanes of them; a wider payload
+//     (values of any width) goes on in gather_lanes launches of kGroup
+//     lanes each, through the index the last launch writes out;
 //   * tile_sort: each block copies `tile` rows of the key lanes into shared
 //     memory (cp.async, 16 bytes a thread), sorts kItems rows per thread in registers (odd-even
 //     transposition over row numbers), then merges runs of 8, 16, ... rows
@@ -26,8 +28,14 @@
 // keys the left run wins, so the sort is stable: it equals the stable LSD
 // sort_lanes_plain for every input, ties included.
 //
-// The plan (tile, chunk, passes, shared-memory bytes, scratch) is computed
-// by the Python wrapper (ops/bitonic_sort.py plan_sort) and checked here.
+// Segments (a shard axis): with segment < n the passes stop at runs of
+// `segment` rows, so each aligned segment of the rows is sorted on its
+// own and no row leaves its segment — S shards of capacity C sort in one
+// call as S * C rows with segment C. The tile is at most the segment.
+//
+// The plan (tile, chunk, passes, segment, shared-memory bytes, scratch) is
+// computed by the Python wrapper (ops/bitonic_sort.py plan_sort) and
+// checked here.
 //
 // Bound on the card: memory and launches, never arithmetic. Each merge pass
 // reads and writes each of the num_keys + 1 sorted lanes once; the final
@@ -43,7 +51,8 @@
 
 namespace rs {
 
-constexpr int kMaxLanes = 16;             // operands of one sort
+constexpr int kMaxLanes = 16;             // key lanes of one sort
+constexpr int kGroup = kMaxLanes;         // payload lanes one launch gathers
 constexpr int kItems = 8;                 // rows per thread
 constexpr int kMinTile = 256;
 constexpr int kMaxTile = 2048;
@@ -75,19 +84,30 @@ struct LaneOut {
 };
 
 struct SortPlan {
-  int n, num_keys, num_payload, tile, chunk, passes, smem;
+  int n, num_keys, num_payload, tile, chunk, passes, segment, smem;
   int64_t scratch_words;
+};
+
+// A payload lane: row r of the source at p[r * stride], its sorted lane
+// at out.
+struct PayLane {
+  const uint32_t* p;
+  int64_t stride;
+  uint32_t* out;
 };
 
 // Where a launch writes. Not final: the num_keys + 1 sorted lanes into
 // `buf` (lane l at buf + l * n, the index lane last). Final: the key lanes
-// into out.p[0..num_keys) and payload lane q, gathered through the index,
-// into out.p[num_keys + q].
+// into out.p[0..num_keys), payload lane q < num_payload (the first group),
+// gathered through the index, into pay_out.p[q], and the index itself into
+// `index` when later groups need it (else null).
 struct Sink {
   uint32_t* buf;
   LaneOut out;
   LaneIn payload;
+  LaneOut pay_out;
   int num_payload;
+  uint32_t* index;
   int final_;
 };
 
@@ -100,10 +120,11 @@ __device__ __forceinline__ void put_row(const Sink& s, int n, int l,
 }
 
 // Final launch: output rows base + tid + k * nt (k < kItems) of every
-// payload lane, from source rows idx[k]. All kItems loads of a lane are
+// payload lane of the first group, from source rows idx[k], and the index
+// when later groups gather through it. All kItems loads of a lane are
 // issued before its stores.
-__device__ __forceinline__ void put_payload(const Sink& s, int num_keys,
-                                            int64_t base, int tid, int nt,
+__device__ __forceinline__ void put_payload(const Sink& s, int64_t base,
+                                            int tid, int nt,
                                             const uint32_t (&idx)[kItems]) {
   for (int q = 0; q < s.num_payload; ++q) {
     const uint32_t* p = s.payload.p[q];
@@ -113,8 +134,29 @@ __device__ __forceinline__ void put_payload(const Sink& s, int num_keys,
     for (int k = 0; k < kItems; ++k) v[k] = __ldg(p + idx[k] * st);
 #pragma unroll
     for (int k = 0; k < kItems; ++k)
-      s.out.p[num_keys + q][base + tid + k * nt] = v[k];
+      s.pay_out.p[q][base + tid + k * nt] = v[k];
   }
+  if (s.index) {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) s.index[base + tid + k * nt] = idx[k];
+  }
+}
+
+// A later group of payload lanes: sorted row i of lane q is source row
+// index[i] of src lane q. Every load of a row is issued before its stores.
+__global__ void __launch_bounds__(256)
+    gather_lanes(const uint32_t* __restrict__ index, int n, LaneIn src,
+                 LaneOut dst, int lanes) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t r = __ldg(index + i);
+  uint32_t v[kGroup];
+#pragma unroll
+  for (int q = 0; q < kGroup; ++q)
+    if (q < lanes) v[q] = __ldg(src.p[q] + r * src.stride[q]);
+#pragma unroll
+  for (int q = 0; q < kGroup; ++q)
+    if (q < lanes) dst.p[q][i] = v[q];
 }
 
 // True when row b orders strictly before row a; rows live in shared memory
@@ -249,7 +291,7 @@ __global__ void __launch_bounds__(kMaxTile / kItems)
 #pragma unroll
     for (int k = 0; k < kItems; ++k)
       rows[k] = (uint32_t)(base + perm[tid + k * nt]);
-    put_payload(sink, num_keys, base, tid, nt, rows);
+    put_payload(sink, base, tid, nt, rows);
   } else {
     for (int r = tid; r < tile; r += nt)
       put_row(sink, n, num_keys, base + r,
@@ -347,7 +389,7 @@ __global__ void __launch_bounds__(kMaxTile / kItems)
 #pragma unroll
     for (int k = 0; k < kItems; ++k)
       rows[k] = smem[num_keys * chunk + sidx[tid + k * nt]];
-    put_payload(sink, num_keys, c0, tid, nt, rows);
+    put_payload(sink, c0, tid, nt, rows);
   }
 }
 
@@ -363,6 +405,12 @@ inline int sort_smem_bytes(int num_keys, int rows) {
   return (num_keys + 2) * rows * (int)sizeof(uint32_t);
 }
 
+// gather_lanes launches after the last sort launch: one per kGroup
+// payload lanes beyond the first group.
+inline int gather_launches(int num_payload) {
+  return num_payload > kGroup ? (num_payload - 1) / kGroup : 0;
+}
+
 // Words of ping-pong buffer the plan needs: none when the tile sort is the
 // last launch, one buffer for a single merge pass, two beyond.
 inline int64_t sort_buffer_words(const SortPlan& p) {
@@ -370,15 +418,22 @@ inline int64_t sort_buffer_words(const SortPlan& p) {
   return (int64_t)bufs * (p.num_keys + 1) * p.n;
 }
 
+// Words of the index lane later payload groups gather through.
+inline int64_t sort_index_words(const SortPlan& p) {
+  return gather_launches(p.num_payload) ? p.n : 0;
+}
+
 // The plan must be one the kernels take; the wrapper computes it.
 inline bool plan_ok(const SortPlan& p) {
   return p.n >= kMinTile && pow2(p.n) && p.num_keys >= 1 &&
-         p.num_payload >= 0 && p.num_keys + p.num_payload <= kMaxLanes &&
+         p.num_keys <= kMaxLanes && p.num_payload >= 0 &&
+         pow2(p.segment) && p.segment >= kMinTile && p.segment <= p.n &&
          pow2(p.tile) && p.tile >= kMinTile && p.tile <= kMaxTile &&
-         p.tile <= p.n && pow2(p.chunk) && p.chunk >= kMinTile &&
-         p.chunk <= p.tile && p.passes == log2_exact(p.n / p.tile) &&
+         p.tile <= p.segment && pow2(p.chunk) && p.chunk >= kMinTile &&
+         p.chunk <= p.tile && p.passes == log2_exact(p.segment / p.tile) &&
          p.smem >= sort_smem_bytes(p.num_keys, p.tile) &&
-         p.smem <= kDynSmemMax && p.scratch_words >= sort_buffer_words(p);
+         p.smem <= kDynSmemMax &&
+         p.scratch_words >= sort_buffer_words(p) + sort_index_words(p);
 }
 
 // The opt-in for dynamic shared memory above 48 KB, once per library. Not
@@ -397,24 +452,31 @@ static cudaError_t sort_attributes_once() {
   return err;
 }
 
-// Sort on `stream`: keys (num_keys lanes) and payload (num_payload lanes)
-// into out (num_keys + num_payload lanes), through `scratch` (the plan's
-// buffer words). Adds one to *launches per kernel launched. Returns the
-// first error.
-inline cudaError_t merge_sort_device(const LaneIn& keys,
-                                     const LaneIn& payload,
-                                     const LaneOut& out, const SortPlan& p,
-                                     uint32_t* scratch, cudaStream_t stream,
+// Sort on `stream`: keys (num_keys lanes) into out, and the num_payload
+// lanes of `pay` (a host array) into their own outputs, through `scratch`
+// (the plan's buffer words) and `index` (n words; used only when the
+// payload has more than one group). Adds one to *launches per kernel
+// launched. Returns the first error.
+inline cudaError_t merge_sort_device(const LaneIn& keys, const LaneOut& out,
+                                     const PayLane* pay,
+                                     const SortPlan& p, uint32_t* scratch,
+                                     uint32_t* index, cudaStream_t stream,
                                      int* launches) {
   if (!plan_ok(p)) return cudaErrorInvalidValue;
   cudaError_t err = sort_attributes_once();
   if (err != cudaSuccess) return err;
   const int64_t buf_words = (int64_t)(p.num_keys + 1) * p.n;
   uint32_t* bufs[2] = {scratch, scratch + buf_words};
+  const int gathers = gather_launches(p.num_payload);
   Sink sink;
   sink.out = out;
-  sink.payload = payload;
-  sink.num_payload = p.num_payload;
+  sink.num_payload = p.num_payload < kGroup ? p.num_payload : kGroup;
+  for (int q = 0; q < sink.num_payload; ++q) {
+    sink.payload.p[q] = pay[q].p;
+    sink.payload.stride[q] = (int)pay[q].stride;
+    sink.pay_out.p[q] = pay[q].out;
+  }
+  sink.index = gathers ? index : nullptr;
   sink.final_ = p.passes == 0;
   sink.buf = bufs[0];
   tile_sort<<<p.n / p.tile, p.tile / kItems,
@@ -428,6 +490,22 @@ inline cudaError_t merge_sort_device(const LaneIn& keys,
     merge_pass<<<p.n / p.chunk, p.chunk / kItems,
                  sort_smem_bytes(p.num_keys, p.chunk), stream>>>(
         bufs[pass & 1], p.num_keys, p.n, p.tile << pass, p.chunk, sink);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ++*launches;
+  }
+  for (int g = 1; g <= gathers; ++g) {
+    LaneIn src{};
+    LaneOut dst{};
+    const int q0 = g * kGroup;
+    const int lanes =
+        p.num_payload - q0 < kGroup ? p.num_payload - q0 : kGroup;
+    for (int q = 0; q < lanes; ++q) {
+      src.p[q] = pay[q0 + q].p;
+      src.stride[q] = (int)pay[q0 + q].stride;
+      dst.p[q] = pay[q0 + q].out;
+    }
+    gather_lanes<<<(p.n + 255) / 256, 256, 0, stream>>>(index, p.n, src,
+                                                        dst, lanes);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ++*launches;
   }

@@ -80,12 +80,15 @@ def lanes_from_numpy(batch: Mapping[str, np.ndarray],
 def lanes_to_numpy(out: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     """An output dict back on the host: lanes as numpy uint32 (bool and
     uint8 keep their type); 0-dim ``count`` as an int and 0-dim
-    ``needs_cpu_fallback`` as a bool."""
+    ``needs_cpu_fallback`` as a bool; a batched (S,) ``count`` as int32,
+    as ``jax.vmap`` gives it."""
     res: Dict[str, object] = {}
     for k, v in out.items():
         if v.dim() == 0:
             res[k] = bool(v.item()) if v.dtype == torch.bool else int(
                 v.item())
+        elif k == "count":
+            res[k] = v.detach().cpu().numpy()
         else:
             res[k] = u32_numpy(v)
     return res

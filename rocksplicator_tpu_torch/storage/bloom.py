@@ -36,19 +36,13 @@ def _avalanche_np(h: np.ndarray) -> np.ndarray:
     return h ^ (h >> np.uint32(16))
 
 
-def hash_many(keys: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
-    """(h1, mask) u32 lanes for ``keys``: the word is ``h1 % num_words``
-    of a filter, ``mask`` the K_BITS bits the key sets in it."""
-    n = len(keys)
-    if n == 0:
-        z = np.zeros(0, dtype=np.uint32)
-        return z, z
-    mat = np.frombuffer(
-        b"".join(k[:PREFIX_BYTES].ljust(PREFIX_BYTES, b"\x00")
-                 for k in keys),
-        dtype=np.uint8).reshape(n, PREFIX_BYTES)
-    lens = np.fromiter((len(k) for k in keys), dtype=np.uint32, count=n)
-    words_le = mat.view("<u4").astype(np.uint32)
+def hash_words(words_le: np.ndarray,
+               lens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(h1, mask) u32 lanes for keys given as (n, 6) little-endian u32
+    words of their zero-padded 24-byte prefix and their lengths."""
+    words_le = np.asarray(words_le, dtype=np.uint32)
+    lens = np.asarray(lens, dtype=np.uint32)
+    n = lens.shape[0]
     with np.errstate(over="ignore"):
         h = np.full(n, _FNV_OFFSET, dtype=np.uint32)
         for w in range(_PREFIX_WORDS):
@@ -61,6 +55,21 @@ def hash_many(keys: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
             mask |= np.uint32(1) << ((h2 >> np.uint32(5 * j))
                                      & np.uint32(31))
     return h1, mask
+
+
+def hash_many(keys: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+    """(h1, mask) u32 lanes for ``keys``: the word is ``h1 % num_words``
+    of a filter, ``mask`` the K_BITS bits the key sets in it."""
+    n = len(keys)
+    if n == 0:
+        z = np.zeros(0, dtype=np.uint32)
+        return z, z
+    mat = np.frombuffer(
+        b"".join(k[:PREFIX_BYTES].ljust(PREFIX_BYTES, b"\x00")
+                 for k in keys),
+        dtype=np.uint8).reshape(n, PREFIX_BYTES)
+    lens = np.fromiter((len(k) for k in keys), dtype=np.uint32, count=n)
+    return hash_words(mat.view("<u4"), lens)
 
 
 class BloomFilter:

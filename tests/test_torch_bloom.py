@@ -4,6 +4,7 @@ interpret mode, and the storage ``BloomFilter``. Tolerance 0."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -91,3 +92,23 @@ def test_bloom_constants_match_jax():
         assert getattr(tsbloom, name) == getattr(jsbloom, name), name
     for n, b in ((0, 10), (1, 10), (131072, 10), (4096, 7)):
         assert tsbloom.num_words_for(n, b) == jsbloom.num_words_for(n, b)
+
+
+def test_bloom_build_batched_matches_jax_vmap():
+    """S = 3 shards' bitmaps in one call against ``jax.vmap`` of
+    ``bloom_build_tpu`` with each shard's rows valid below its count."""
+    import jax
+
+    kws, kls = zip(*[_lanes(512, seed=60 + s)[:2] for s in range(3)])
+    kw, kl = np.stack(kws), np.stack(kls)
+    count = np.array([0, 200, 512], dtype=np.int32)
+    valid = np.arange(512)[None, :] < count[:, None]
+    want = np.asarray(jax.vmap(lambda a, b, c: jbloom.bloom_build_tpu(
+        a, b, c, num_words=77))(jnp.asarray(kw), jnp.asarray(kl),
+                                jnp.asarray(valid)))
+    t = lanes_from_numpy({"kw": kw, "kl": kl}, "cpu")
+    got = tbloom.bloom_build_batched(t["kw"], t["kl"],
+                                     torch.from_numpy(count), num_words=77)
+    assert got.shape == (3, 77)
+    np.testing.assert_array_equal(want, u32_numpy(got))
+    assert not want[0].any()

@@ -7,6 +7,7 @@ import struct
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -208,6 +209,29 @@ def test_unknown_sort_backend_raises():
             tck.merge_resolve_kernel(*args, sort_backend=bad)
 
 
+@pytest.mark.parametrize("flag,backend", [
+    ("pallas_fused", "fused"), ("pallas", "bitonic"), ("lax", "fused"),
+    ("triton", "fused")])
+def test_deployment_sort_backend_reads_the_flag(flag, backend, monkeypatch):
+    """The port's ``sort_backend`` flag, set at run time or from the
+    environment when the flag is defined, keeps the JAX package's
+    mapping: lax and unknown values take K2."""
+    from rocksplicator_tpu_torch.utils.flags import FLAGS, FlagRegistry
+
+    old = FLAGS.get("sort_backend")
+    FLAGS.set("sort_backend", flag)
+    try:
+        assert tck.deployment_sort_backend() == backend
+    finally:
+        FLAGS.set("sort_backend", old)
+    monkeypatch.setenv("RSTPU_FLAG_SORT_BACKEND", flag)
+    fresh = FlagRegistry()
+    fresh.define("sort_backend", "lax")
+    assert fresh.get("sort_backend") == flag
+    fresh.reset("sort_backend")
+    assert fresh.get("sort_backend") == "lax"
+
+
 def test_sort_backends_agree_on_cpu():
     """On CPU tensors both backends run the plain path."""
     args = torch_args(synth_mixed_batch(512, seed=9))
@@ -228,3 +252,64 @@ def test_fused_launcher_refuses_cpu_tensors():
     args = torch_args(synth_counter_batch(256, seed=0))
     with pytest.raises(ValueError):
         fused_merge_resolve(*args)
+
+
+def _stacked(batches):
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+@pytest.mark.parametrize("merge_kind,drop,uniform_klen,seq32", [
+    ("uint64add", True, False, False), ("uint64add", False, True, True),
+    ("none", True, True, False), ("none", False, False, True)])
+def test_merge_resolve_batched_matches_jax_vmap(merge_kind, drop,
+                                                uniform_klen, seq32):
+    """S = 3 shards of C = 512 through ``merge_resolve_batched`` against
+    ``jax.vmap(merge_resolve_kernel)``: (S, C) lanes, (S,) count and
+    needs_cpu_fallback."""
+    batch = _stacked([synth_mixed_batch(
+        512, seed=40 + s, uniform_klen=uniform_klen, seq32=seq32,
+        valid_frac=0.5 + 0.2 * s) for s in range(3)])
+    flags = dict(drop_tombstones=drop, uniform_klen=uniform_klen,
+                 seq32=seq32, key_words=6)
+    fn = jax.vmap(lambda *a: jck.merge_resolve_kernel(
+        *a, merge_kind=jck.MergeKind(merge_kind), **flags))
+    want = jax_out(fn(*jax_args(batch)))
+    got = torch_out(tck.merge_resolve_batched(
+        *torch_args(batch), merge_kind=tck.MergeKind(merge_kind), **flags))
+    assert want["count"].shape == (3,)
+    assert_same_outputs(want, got)
+
+
+@pytest.mark.parametrize("merge_kind", ["uint64add", "none"])
+def test_segmented_resolve_matches_shard_by_shard(merge_kind):
+    """The bitonic route of ``merge_resolve_batched`` on the card — one
+    segmented sort and the torch resolve with a key boundary at every
+    shard start and a per-shard compaction — equals the plain version
+    shard by shard (here with the plain segmented sort)."""
+    batch = _stacked([synth_mixed_batch(256, seed=50 + s) for s in range(4)])
+    args = torch_args(batch)
+    flags = dict(merge_kind=tck.MergeKind(merge_kind), drop_tombstones=True,
+                 uniform_klen=False, seq32=False, key_words=6)
+    want = tck.merge_resolve_batched(*args, **flags)
+    flat = [x.reshape((1024,) + tuple(x.shape[2:])) for x in args]
+    got = tck._merge_resolve(*flat, sort=sort_lanes_plain, segment=256,
+                             **flags)
+    for k, w in want.items():
+        g = got[k] if w.dim() == 1 and k in ("count",
+                                            "needs_cpu_fallback") else (
+            got[k].view(w.shape))
+        assert torch.equal(g, w), k
+
+
+def test_sort_lanes_plain_segments_sort_each_segment():
+    rng = np.random.default_rng(9)
+    ops = [rng.integers(0, 5, 1024).astype(np.uint32) for _ in range(2)]
+    ops.append(np.arange(1024, dtype=np.uint32))
+    t = lanes_from_numpy({str(i): o for i, o in enumerate(ops)}, "cpu")
+    lanes = [t[str(i)] for i in range(3)]
+    got = sort_lanes_plain(lanes, 2, segment=256)
+    for s in range(4):
+        part = [x[s * 256:(s + 1) * 256] for x in lanes]
+        want = sort_lanes_plain(part, 2)
+        for w, g in zip(want, got):
+            assert torch.equal(g[s * 256:(s + 1) * 256], w)

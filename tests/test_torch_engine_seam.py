@@ -1,7 +1,8 @@
 """The port's engine seam against the JAX package's: a reference DB that
 compacts through ``GpuCompactionBackend(device="cpu")`` writes the same
 ``.tsst`` bytes as one that compacts through ``TpuCompactionBackend``
-(jax on the CPU, lax path) for the same writes, and serves the same keys.
+(jax on the CPU, lax path) for the same writes, and serves the same keys,
+key-range subcompactions and values wider than 32 bytes included.
 Tolerance 0: files are compared byte for byte."""
 
 import os
@@ -10,6 +11,7 @@ import struct
 import numpy as np
 import pytest
 
+import rocksplicator_tpu.storage.native_compaction as jax_native
 import rocksplicator_tpu.tpu.backend as jax_backend
 from rocksplicator_tpu.ops.kv_format import pack_entries as jax_pack
 from rocksplicator_tpu.storage import DB, DBOptions, UInt64AddOperator
@@ -22,6 +24,7 @@ from rocksplicator_tpu_torch.gpu import backend as gpu_backend
 from rocksplicator_tpu_torch.gpu import (GpuCompactionBackend,
                                          NumpyCompactionBackend)
 from rocksplicator_tpu_torch.ops.kv_format import pack_entries
+from rocksplicator_tpu_torch.storage import native_compaction
 from rocksplicator_tpu_torch.storage.merge import is_uint64_add
 
 pack64 = struct.Struct("<q").pack
@@ -100,6 +103,19 @@ def _long_keys(db):
         db.flush()
 
 
+def _wide_values(db):
+    # 16-byte keys and 64-byte values: 16 value words through the sort,
+    # wider than K1/K2 took before any number of payload lanes
+    for r in range(2):
+        for i in range(90):
+            key = f"wide:{i:011d}".encode()
+            if (i + r) % 7 == 0:
+                db.delete(key)
+            else:
+                db.put(key, bytes([(i * 13 + r) % 251]) * 64)
+        db.flush()
+
+
 def _chunked(db):
     # four runs over one key set: each run folds in chunks, then the run
     # summaries fold two by two before the last launch
@@ -131,6 +147,9 @@ CASES = {
     "long_keys_cpu_path": (dict(merge_operator=UInt64AddOperator),
                            _long_keys, False),
     "chunked": (dict(merge_operator=UInt64AddOperator), _chunked, False),
+    "wide_values_planar": (dict(), _wide_values, True),
+    "subcompactions": (dict(merge_operator=UInt64AddOperator,
+                            max_subcompactions=4), _counters, True),
 }
 
 
@@ -181,6 +200,19 @@ def test_gpu_backend_writes_the_reference_files(case, tmp_path,
 
         monkeypatch.setattr(gpu_backend, "chunked_merge", spy)
     gpu = GpuCompactionBackend(device="cpu")
+    sliced = []
+    if case == "subcompactions":
+        # slices of 32 entries: both packages cut every job in four
+        monkeypatch.setattr(jax_native, "MIN_SLICE_ENTRIES", 32)
+        monkeypatch.setattr(native_compaction, "MIN_SLICE_ENTRIES", 32)
+        real_sub = gpu._subcompact_arrays
+
+        def sub_spy(*a, **kw):
+            out = real_sub(*a, **kw)
+            sliced.append(out is not None)
+            return out
+
+        gpu._subcompact_arrays = sub_spy
     sink = gpu.merge_runs_to_files
     wrote = []
 
@@ -206,6 +238,8 @@ def test_gpu_backend_writes_the_reference_files(case, tmp_path,
         assert len(want_names) > 1
     if case == "chunked":
         assert chunked_calls and all(chunked_calls), chunked_calls
+    if case == "subcompactions":
+        assert sliced == [True, True], sliced
 
 
 def _entries(seed, n=300, keys=60, klen=10):
@@ -274,13 +308,14 @@ def test_uint64_add_is_recognised_by_name():
 
 
 def test_file_sink_refuses_capabilities_it_lacks(tmp_path):
+    """Subcompactions are taken; the memory budget is not ported yet."""
     backend = GpuCompactionBackend(device="cpu")
-    assert not backend.supports_subcompactions
+    assert backend.supports_subcompactions
     assert not backend.supports_memory_budget
     args = ([], None, True, lambda: str(tmp_path / "x.tsst"), 32768, 1, 10,
             1 << 20)
-    for kw in (dict(max_subcompactions=4), dict(memory_budget_bytes=1),
-               dict(mem_tracker=object())):
+    for kw in (dict(memory_budget_bytes=1), dict(mem_tracker=object())):
         with pytest.raises(TypeError):
             backend.merge_runs_to_files(*args, **kw)
     assert backend.merge_runs_to_files(*args) is None
+    assert backend.merge_runs_to_files(*args, max_subcompactions=4) is None

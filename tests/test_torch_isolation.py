@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package, and its entry points
 do not quietly run on the CPU when CUDA is missing; its engine seam
-(``gpu/``, ``storage/``) compacts into a file on the CPU with both
-blocked.
+(``gpu/``, ``storage/``) compacts into a file, and its batched service
+compacts shards, on the CPU with both blocked.
 
 The import check runs in a subprocess, because this test process has
 imported JAX already (tests/conftest.py)."""
@@ -38,9 +38,11 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "rocksplicator_tpu"))
 assert not bad, bad
-seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format", "storage.errors",
-        "storage.merge", "storage.compaction", "storage.bloom",
-        "storage.rlz", "storage.planar", "storage.sst"}
+seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
+        "gpu.compaction_service", "storage.errors", "storage.merge",
+        "storage.compaction", "storage.bloom", "storage.rlz",
+        "storage.planar", "storage.sst", "storage.native_compaction",
+        "utils.flags"}
 missing = {m for m in seam if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 print("IMPORTED", len(names))
@@ -48,8 +50,11 @@ print("IMPORTED", len(names))
 from rocksplicator_tpu_torch.entry import bench_model, entry
 from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
 from rocksplicator_tpu_torch.models import CompactionModel
+from rocksplicator_tpu_torch.gpu.compaction_service import (
+    GpuCompactionService)
 for call in (entry, bench_model, lambda: CompactionModel().example_args(),
-             GpuCompactionBackend):
+             GpuCompactionBackend, GpuCompactionService,
+             GpuCompactionService.instance):
     try:
         call()
     except RuntimeError as exc:
@@ -78,6 +83,14 @@ with tempfile.TemporaryDirectory() as d:
     reader.close()
 assert got == [(b"k%03d" % i, pk(100 + i)) for i in range(50)], got[:3]
 print("SEAM_ON_CPU")
+
+# the batched service on the CPU: two shards in one call
+from rocksplicator_tpu_torch.ops.kv_format import pack_entries
+shards = [pack_entries(run) for run in runs]
+res = GpuCompactionService(device="cpu").compact_shard_batch(shards)
+assert [r["count"] for r in res] == [50, 50], res
+assert res[1]["entries"][0][3] == pk(100), res[1]["entries"][0]
+print("BATCH_ON_CPU")
 rc = chip_smoke.main()
 assert rc != 0, rc
 print("SMOKE_REFUSES", rc)
@@ -99,6 +112,7 @@ def test_port_imports_without_jax_and_refuses_cpu_fallback():
     assert n >= 15, res.stdout
     assert "RAISES_WITHOUT_CUDA" in res.stdout
     assert "SEAM_ON_CPU" in res.stdout
+    assert "BATCH_ON_CPU" in res.stdout
     assert "SMOKE_REFUSES" in res.stdout
     assert '"ok"' not in res.stdout
 

@@ -145,3 +145,35 @@ def test_end_to_end_matches_numpy_backend():
             jruns, UInt64AddOperator(), drop))
         assert [(k, s, int(t), v) for k, s, t, v in got] == [
             (k, s, int(t), v) for k, s, t, v in want]
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("bench", dict(BENCH_CFG, capacity=1024, planar_block_entries=256)),
+    ("rows_flags_off", dict(capacity=512, emit_rows=True, emit_planar=True,
+                            row_klen=24, row_vlen=8, drop_tombstones=False)),
+])
+def test_batched_forward_matches_jax_vmap(name, cfg):
+    """A leading shard axis: one ``forward`` over S = 3 shards against
+    ``jax.vmap(model.forward)`` (``bench.py:316``), every output with the
+    shard axis, and ``forward_plain`` (shard by shard) equal to it."""
+    import jax
+
+    shards = [synth_counter_batch(cfg["capacity"], seed=70 + s)
+              for s in range(3)]
+    batch = {k: np.stack([b[k] for b in shards]) for k in shards[0]}
+    want = jax_out(jax.vmap(JaxModel(**_jax_cfg(cfg)).forward)(
+        *jax_args(batch)))
+    model = CompactionModel(**cfg)
+    args = torch_args(batch)
+    got = torch_out(model.forward(*args))
+    assert want["count"].shape == (3,)
+    assert_same_outputs(want, got, name)
+    assert_same_outputs(want, torch_out(model.forward_plain(*args)), name)
+
+
+def test_bench_model_gives_the_bench_shards():
+    model, args = bench_model(device="cpu", shards=2)
+    _, one = bench_model(device="cpu", seed=1)
+    assert args[0].shape == (2, 131072, 6)
+    for a, b in zip(args, one):
+        assert torch.equal(a[1], b)
