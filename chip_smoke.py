@@ -16,7 +16,11 @@ PyTorch built for CUDA. It
    (``parity`` F6: 16-byte keys with W = 16 and W = 64 value words); the
    shard axis (``parity`` batched: K2 over 8 shards of 2^17 under both
    flag sets with one overflow shard, K1 segmented, K3 batched, each
-   against the plain version shard by shard);
+   against the plain version shard by shard); K3 by both of its routes
+   (global, the plan's for a batch of bitmaps; rowwise, the plan's for
+   one) at the bench's 8 x 2^17, one 2^17 bitmap, the service's 8 x 2^20,
+   one file's bloom of 2^21 rows and a batch with one shard at count 0
+   and one at its capacity;
 3. drives the main path through the entry points — ``entry()``, the bench
    configuration as ONE batched forward over 8 shards of 2^17 entries
    (``jax.vmap(model.forward)`` in the JAX package), and one 2^22-entry job
@@ -37,7 +41,14 @@ PyTorch built for CUDA. It
    ``numpy_merge_resolve``; the same job with ``max_subcompactions = 4``
    (``engine_seam_subcompact``: one batched K2 call over the key-range
    slices, the same files); planar runs with 64-byte values and no
-   operator (``engine_seam_wide``);
+   operator (``engine_seam_wide``); these phases pin the streaming merge
+   off. Then the streaming merge in auto mode: the same 2^22 job under a
+   32 MiB budget (``engine_seam_stream_budget``: the in-RAM files, the
+   peak within the budget plus the sink's one-file buffer) and 4 planar
+   runs of 2^21 entries, twice the single-launch limit, under the default
+   256 MiB budget and both sort backends (``engine_seam_stream``: no
+   decline, one K2 (or K1) call per chunk, the peak within the budget,
+   the files of the same stream resolved on the host by numpy);
 4c. drives the batched service, ``gpu.compaction_service``:
    ``compact_shard_batch`` over 8 shards of 2^20 counter entries
    (``service_batch``: one K2 and one K3 call, each shard equal to
@@ -49,8 +60,10 @@ PyTorch built for CUDA. It
    after warm-up: 10 at the 2^22 and batched 8 x 2^20 shapes, 50 at the
    host-bound small shapes, whose medians move most from call to call)
    beside its plain version and its memory bound, and each kernel's device
-   time per call from torch.profiler, K1 and K2 at 2^17 and 2^22, both
-   over the sort tiles the plan could choose, the batched shapes and
+   time per call from torch.profiler; K1 and K2 at 2^17 and 2^22 over the
+   sort tiles the plan could choose, K3 at its four timed shapes over the
+   routes, thread counts and grid sizes its plan could choose
+   (``k3_sweep``, each against the plain version); the batched shapes and
    W = 16; and profiles the batched bench forward and the 8 single-shard
    forwards it replaces.
 
@@ -79,6 +92,10 @@ SHORT_REPS = 50  # host-bound shapes (< ~10 ms a call)
 # the engine seam: runs of 2^20 entries, four of which fill one launch
 # (the backend's MAX_LAUNCH_ENTRIES), and DBOptions' target_file_bytes
 SEAM_RUN_ENTRIES = 1 << 20
+# the streaming phases: 4 runs of this many entries, twice the single-launch
+# limit in all; engine_seam_job's runs under this budget
+STREAM_RUN_ENTRIES = 1 << 21
+STREAM_BUDGET_BYTES = 32 << 20
 SEAM_TARGET_FILE_BYTES = 64 << 20
 # rows of each parity case of the new shapes (F6, batched shards)
 PARITY_N = 1 << 17
@@ -89,6 +106,8 @@ SERVICE_ENTRIES = 1 << 20
 DBS_RUN_ENTRIES = 1 << 18
 DBS_SHARDS = 12
 WIDE_RUN_ENTRIES = 1 << 18
+# K3 on one output file's bloom: the seam's per-file shape
+K3_FILE_ROWS = 1 << 21
 
 
 def emit(obj) -> None:
@@ -179,7 +198,7 @@ def _kernel_group(name: str) -> str:
         return "K2 key build"
     if "resolve_compact" in name:
         return "K2 resolve + scans + compact"
-    if "bloom_build" in name:
+    if "bloom_global_kernel" in name or "bloom_rowwise_kernel" in name:
         return "K3 bloom build"
     if "memset" in name.lower():
         return "memsets (K2 status words, torch fills)"
@@ -683,6 +702,187 @@ def engine_seam_wide(dev, work_dir: str, card: str) -> tuple:
             "stage_seconds": backend.last_stage_seconds}, launches
 
 
+def _stream_mode(mode) -> None:
+    """Set the port's streaming-merge mode (None: its environment's)."""
+    from rocksplicator_tpu_torch.storage import stream_merge
+
+    stream_merge.STREAM_MODE_OVERRIDE = mode
+
+
+def _streamed(backend, readers, path_factory, tracker, budget: int = 0):
+    """One merge_runs_to_files call that must stream: (outputs, seconds,
+    launches)."""
+    import torch
+
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.sst import COMPRESSION_ZLIB
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    outs = backend.merge_runs_to_files(
+        readers, UInt64AddOperator(), True, path_factory, 32 * 1024,
+        COMPRESSION_ZLIB, 10, SEAM_TARGET_FILE_BYTES, mem_tracker=tracker,
+        memory_budget_bytes=budget)
+    torch.cuda.synchronize()
+    return outs, time.time() - t0, dict(_build.LAUNCHES)
+
+
+def _check_stream(what: str, outs, made: list, want: list, backend,
+                  tracker, peak_limit: int, launches: dict,
+                  merge_kernel: str) -> None:
+    """Streamed with no decline, one merge launch per chunk, the peak
+    within ``peak_limit``, the files of the reference."""
+    if outs is None or [p for p, _ in outs] != made:
+        raise AssertionError(f"{what}: the stream declined ({outs})")
+    chunks = backend.last_stream_chunks
+    if chunks < 2 or launches[merge_kernel] != chunks:
+        raise AssertionError(f"{what}: {chunks} chunks, launches {launches}")
+    if not 0 < tracker.peak <= peak_limit:
+        raise AssertionError(f"{what}: peak {tracker.peak} bytes, limit "
+                             f"{peak_limit}")
+    _same_files(made, want, what)
+
+
+def engine_seam_stream(dev, work_dir: str, card: str) -> tuple:
+    """A job the in-RAM route cannot take: 4 planar SST runs of 2^21
+    counter entries (2^23 entries, twice the single-launch limit) merged
+    by GpuCompactionBackend.merge_runs_to_files in auto mode under the
+    default 256 MiB budget, under both sort backends. It must stream with
+    no decline, one K2 call (K1 under pallas) per chunk, a peak within the
+    budget, and files byte-identical to the same stream resolved by
+    CpuChunkResolver (numpy). Returns (report, launches by backend)."""
+    import os
+
+    from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+    from rocksplicator_tpu_torch.gpu.format import planar_stride
+    from rocksplicator_tpu_torch.storage import stream_merge
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.sst import (COMPRESSION_ZLIB,
+                                                     SSTReader)
+
+    n_in = 4 * STREAM_RUN_ENTRIES
+    t0 = time.time()
+    runs = counter_runs(4, STREAM_RUN_ENTRIES, n_in, seed=45)
+    inputs = _write_runs(runs, work_dir, "stream",
+                         32 * 1024 // planar_stride(16, 8))
+    del runs
+    write_inputs_s = time.time() - t0
+    budget = stream_merge.CompactionMemoryBudget.get().budget_bytes
+
+    def outputs(tag):
+        made = []
+
+        def path_factory():
+            made.append(os.path.join(work_dir, f"{tag}{len(made)}.tsst"))
+            return made[-1]
+
+        return made, path_factory
+
+    readers = [SSTReader(p) for p in inputs]
+    try:
+        want, pf = outputs("stream_want")
+        tracker = stream_merge.CompactionMemoryBudget.get().tracker()
+        report = {}
+        t0 = time.time()
+        got = stream_merge.maybe_stream_merge(
+            readers, UInt64AddOperator(), True, pf, 32 * 1024,
+            COMPRESSION_ZLIB, 10, SEAM_TARGET_FILE_BYTES,
+            mem_tracker=tracker, resolver=stream_merge.CpuChunkResolver(),
+            report=report)
+        reference_s = time.time() - t0
+        if got is None or len(want) < 2:
+            raise AssertionError(f"engine seam stream: the numpy stream "
+                                 f"wrote {want}")
+        result = {"card": card, "runs": 4, "entries_in": n_in,
+                  "entries_out": sum(p["num_entries"] for _, p in got),
+                  "files": len(want), "budget_bytes": budget,
+                  "write_inputs_s": write_inputs_s,
+                  "numpy_stream_s": reference_s,
+                  "numpy_stream_chunks": report["chunks"],
+                  "numpy_stream_peak_bytes": tracker.peak, "backends": {}}
+        launches = {}
+        for name, flag in SEAM_FLAGS.items():
+            _sort_flag(flag)
+            made, pf = outputs(f"stream_{name}")
+            backend = GpuCompactionBackend(device=dev)
+            tracker = stream_merge.CompactionMemoryBudget.get().tracker()
+            outs, seconds, launches[name] = _streamed(backend, readers, pf,
+                                                      tracker)
+            merge_kernel = ("bitonic_sort" if name == "bitonic"
+                            else "fused_resolve")
+            _check_stream(f"engine seam stream [{name}]", outs, made, want,
+                          backend, tracker, budget, launches[name],
+                          merge_kernel)
+            result["backends"][name] = {
+                "chunks": backend.last_stream_chunks,
+                "peak_bytes": tracker.peak, "seconds": seconds,
+                "entries_per_s": n_in / seconds,
+                "stage_seconds": backend.last_stage_seconds,
+                "launches": launches[name], "identical_files": len(made)}
+            for path in made:
+                os.remove(path)
+    finally:
+        for r in readers:
+            r.close()
+    return result, launches
+
+
+def engine_seam_stream_budget(dev, work_dir: str, card: str) -> tuple:
+    """engine_seam_job's four 2^20-entry runs (its inputs and in-RAM
+    reference files, left in ``work_dir``) under a 32 MiB budget: the
+    stream must write the in-RAM route's files. The sink holds one output
+    file's lanes before it writes the file (the reference's sink does
+    too), about 100 MB for a 64 MiB planar file of 16-byte keys, more than
+    the budget: the windows degrade to their floor and the peak may pass
+    the budget by that buffer and no more."""
+    import os
+
+    from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+    from rocksplicator_tpu_torch.gpu.format import planar_stride
+    from rocksplicator_tpu_torch.storage import stream_merge
+    from rocksplicator_tpu_torch.storage.sst import SSTReader
+
+    budget = STREAM_BUDGET_BYTES
+    # the sink's file buffer: one file's rows of the CPU lanes (6 key
+    # words, 5 scalar lanes, 2 value words)
+    file_rows = max(1024, SEAM_TARGET_FILE_BYTES // planar_stride(16, 8))
+    sink_bytes = file_rows * 4 * (6 + 5 + 2)
+    inputs = [os.path.join(work_dir, f"in{r}.tsst") for r in range(4)]
+    want = sorted((os.path.join(work_dir, f) for f in os.listdir(work_dir)
+                   if f.startswith("want")),
+                  key=lambda p: int(p[len(work_dir) + 5:-5]))
+    made = []
+
+    def path_factory():
+        made.append(os.path.join(work_dir, f"budget{len(made)}.tsst"))
+        return made[-1]
+
+    _sort_flag(SEAM_FLAGS["fused"])
+    backend = GpuCompactionBackend(device=dev)
+    tracker = stream_merge.CompactionMemoryBudget.get().tracker()
+    readers = [SSTReader(p) for p in inputs]
+    try:
+        outs, seconds, launches = _streamed(backend, readers, path_factory,
+                                            tracker, budget)
+    finally:
+        for r in readers:
+            r.close()
+    _check_stream("engine seam stream budget", outs, made, want, backend,
+                  tracker, budget + sink_bytes, launches, "fused_resolve")
+    for path in made:
+        os.remove(path)
+    return {"card": card, "runs": 4, "entries_in": 4 * SEAM_RUN_ENTRIES,
+            "budget_bytes": budget, "sink_file_buffer_bytes": sink_bytes,
+            "peak_bytes": tracker.peak,
+            "peak_over_budget_bytes": tracker.peak - budget,
+            "chunks": backend.last_stream_chunks, "seconds": seconds,
+            "entries_per_s": 4 * SEAM_RUN_ENTRIES / seconds,
+            "stage_seconds": backend.last_stage_seconds,
+            "launches": launches, "identical_files": len(made)}, launches
+
+
 def service_batch(dev, card: str) -> tuple:
     """GpuCompactionService.compact_shard_batch over 8 shards of 2^20
     counter entries (return_arrays): one K2 and one K3 call; every shard's
@@ -874,12 +1074,12 @@ def main() -> int:
     from rocksplicator_tpu_torch.models.compaction_model import (
         FORWARD_ARGS, CompactionModel, synth_counter_batch,
         synth_mixed_batch)
-    from rocksplicator_tpu_torch.ops import _build, bitonic_sort
+    from rocksplicator_tpu_torch.ops import _build, bitonic_sort, bloom_kernel
     from rocksplicator_tpu_torch.ops.bitonic_sort import (
         bitonic_sort_lanes, plan_sort, sort_lanes_plain)
     from rocksplicator_tpu_torch.ops.bloom import bloom_build_plain
     from rocksplicator_tpu_torch.ops.bloom_kernel import (
-        launch_bloom_build, launch_bloom_build_batched)
+        launch_bloom_build, launch_bloom_build_batched, plan_bloom)
     from rocksplicator_tpu_torch.ops.compaction_kernel import (
         MergeKind, composite_key_lanes, merge_resolve_batched,
         merge_resolve_plain)
@@ -988,6 +1188,65 @@ def main() -> int:
 
     errs = {k: 0 for k in sources}
 
+    def k3_plain(kw_le, key_len, live, num_words):
+        """bloom_build_plain of one bitmap (``live`` a bool mask) or of S
+        (``live`` the (S,) counts), shard by shard, on the card."""
+        if key_len.dim() == 1:
+            return bloom_build_plain(kw_le, key_len, live,
+                                     num_words=num_words)
+        rows = torch.arange(key_len.shape[1], device=dev)
+        return torch.stack([bloom_build_plain(
+            kw_le[s], key_len[s], rows < live[s], num_words=num_words)
+            for s in range(key_len.shape[0])])
+
+    def k3_call(kw_le, key_len, live, num_words):
+        """K3 on the card: one bitmap (``live`` a bool mask) or S (the
+        (S,) counts)."""
+        if key_len.dim() == 1:
+            return launch_bloom_build(kw_le, key_len, live,
+                                      num_words=num_words)
+        return launch_bloom_build_batched(kw_le, key_len, live,
+                                          num_words=num_words)
+
+    def k3_plan(key_len, num_words):
+        shards, rows = ((1, key_len.shape[0]) if key_len.dim() == 1
+                        else tuple(key_len.shape))
+        return plan_bloom(shards, rows, num_words)
+
+    def k3_check(what, kw_le, key_len, live, num_words, want) -> int:
+        """One K3 call against ``want`` (the plain version's bitmaps), bit
+        for bit, with the plan's CUDA launches; returns them."""
+        got = k3_call(kw_le, key_len, live, num_words)
+        calls = check_calls("bloom_build",
+                            k3_plan(key_len, num_words).launches, what)
+        err = max_abs_err(got, want)
+        errs["bloom_build"] = max(errs["bloom_build"], err)
+        if err:
+            raise AssertionError(f"{what}: differs from plain ({err})")
+        return calls
+
+    def k3_parity(case, kw_le, key_len, live, num_words) -> None:
+        """Both K3 routes against the plain version: the plan's, and the
+        other one, by setting the plan's shard limit for a call."""
+        want = k3_plain(kw_le, key_len, live, num_words)
+        planned = k3_plan(key_len, num_words)
+        saved = bloom_kernel.ROWWISE_MAX_SHARDS
+        try:
+            for limit in (0, 1 << 30):  # the global route, then rowwise
+                bloom_kernel.ROWWISE_MAX_SHARDS = limit
+                route = k3_plan(key_len, num_words).route
+                k3_check(f"K3 {case} [{route}]", kw_le, key_len, live,
+                         num_words, want)
+        finally:
+            bloom_kernel.ROWWISE_MAX_SHARDS = saved
+        emit({"phase": "parity", "kernel": "bloom_build", "case": case,
+              "shape": list(key_len.shape), "num_words": num_words,
+              "routes": ["global", "rowwise"], "planned": planned.route,
+              "blocks": planned.blocks, "threads": planned.threads,
+              "launches_per_call": planned.launches,
+              "compared_with": "bloom_build_plain (shard by shard)",
+              "max_abs_err": 0})
+
     # ---- 2. kernel parity on the card --------------------------------
     bench_args = lanes_of(synth_counter_batch(1 << 17, seed=0))
     big_args = lanes_of(synth_counter_batch(
@@ -1056,13 +1315,15 @@ def main() -> int:
     k3_kl = lanes_from_numpy({"k": k3_batch["key_len"]}, dev)["k"]
     k3_valid = torch.from_numpy(k3_batch["valid"]).to(dev)
     k3_words = 40960
-    got = launch_bloom_build(k3_kw, k3_kl, k3_valid, num_words=k3_words)
-    want = bloom_build_plain(k3_kw, k3_kl, k3_valid, num_words=k3_words)
-    errs["bloom_build"] = max_abs_err(got, want)
-    if errs["bloom_build"]:
-        raise AssertionError("K3 differs from its plain version")
-    emit({"phase": "parity", "kernel": "bloom_build", "n": k3_n,
-          "num_words": k3_words, "max_abs_err": errs["bloom_build"]})
+    k3_parity("2^17 single, 40960 words", k3_kw, k3_kl, k3_valid, k3_words)
+    # one output file's bloom of 2^21 rows (the seam's per-file shape)
+    file_batch = synth_mixed_batch(K3_FILE_ROWS, seed=6, valid_frac=1.0)
+    file_t = lanes_from_numpy({"kw": file_batch["key_words_le"],
+                               "kl": file_batch["key_len"]}, dev)
+    k3_file = (file_t["kw"], file_t["kl"],
+               torch.ones(K3_FILE_ROWS, dtype=torch.bool, device=dev),
+               num_words_for(K3_FILE_ROWS, 10))
+    k3_parity("one per-file bloom of 2^21 rows", *k3_file)
 
     # ---- 2b. values of any width (F6): 16-byte keys, W = 16 and 64 -----
     f6_args = {}
@@ -1152,21 +1413,13 @@ def main() -> int:
           "launches_per_call": k1_launch,
           "compared_with": "sort_lanes_plain shard by shard",
           "max_abs_err": err})
-    k3_rows = torch.arange(PARITY_N, device=dev)
-    got_k3 = launch_bloom_build_batched(got["key_words_le"], got["key_len"],
-                                        got["count"], num_words=k3_words)
-    want_k3 = torch.stack([bloom_build_plain(
-        got["key_words_le"][s], got["key_len"][s], k3_rows < got["count"][s],
-        num_words=k3_words) for s in range(BENCH_SHARDS)])
-    err = max_abs_err(got_k3, want_k3)
-    errs["bloom_build"] = max(errs["bloom_build"], err)
-    if err:
-        raise AssertionError(f"K3 batched: differs from plain ({err})")
-    emit({"phase": "parity", "kernel": "bloom_build", "case": "batched",
-          "shards": BENCH_SHARDS, "capacity": PARITY_N,
-          "num_words": k3_words,
-          "compared_with": "bloom_build_plain shard by shard",
-          "max_abs_err": err})
+    k3_parity("batched 8 x 2^17", got["key_words_le"], got["key_len"],
+              got["count"], k3_words)
+    # shard 0 empty, shard 7 full to its capacity
+    edge_count = got["count"].clone()
+    edge_count[0], edge_count[BENCH_SHARDS - 1] = 0, PARITY_N
+    k3_parity("batched 8 x 2^17, counts 0 and C", got["key_words_le"],
+              got["key_len"], edge_count, k3_words)
 
     # ---- 3. the main path, counted -----------------------------------
     entry_model, entry_args = entry(dev)
@@ -1263,6 +1516,8 @@ def main() -> int:
     _build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     work_dir = tempfile.mkdtemp(prefix="seam_", dir=str(_build.BUILD_ROOT))
     try:
+        # the in-RAM route's phases: the streaming merge stays off there
+        _stream_mode("never")
         job, job_launches, sub, sub_launches = engine_seam_job(
             dev, work_dir, card)
         emit({"phase": "engine_seam_job", **job})
@@ -1271,6 +1526,14 @@ def main() -> int:
         emit({"phase": "engine_seam_chunked", **chunked})
         wide, wide_launches = engine_seam_wide(dev, work_dir, card)
         emit({"phase": "engine_seam_wide", **wide})
+        # the streaming merge in auto mode, as a deployment runs it
+        _stream_mode("auto")
+        budget, budget_launches = engine_seam_stream_budget(dev, work_dir,
+                                                            card)
+        emit({"phase": "engine_seam_stream_budget", **budget})
+        stream, stream_launches = engine_seam_stream(dev, work_dir, card)
+        emit({"phase": "engine_seam_stream", **stream})
+        _stream_mode(None)
         # ---- 4c. the batched service, each path counted on its own ----
         svc_batch, svc_batch_launches = service_batch(dev, card)
         emit({"phase": "service_batch", **svc_batch})
@@ -1286,6 +1549,9 @@ def main() -> int:
         "engine_seam_subcompact": sub_launches,
         "engine_seam_chunked": chunked_launches,
         "engine_seam_wide": wide_launches,
+        "engine_seam_stream": {k: sum(c[k] for c in stream_launches.values())
+                               for k in sources},
+        "engine_seam_stream_budget": budget_launches,
         "service_batch": svc_batch_launches,
         "service_dbs": svc_dbs_launches,
     }
@@ -1355,31 +1621,84 @@ def main() -> int:
             mb(*used) + mb(*[v for v in out.values() if v.dim()]))
         return row
 
-    def k3_row(kw_le, key_len, count, num_words, reps, shape) -> dict:
-        """Batched K3 and its plain version (shard by shard); the bound
-        reads the counts, and the key words and length of each row below
-        its shard's count (the kernel reads no other row), once, and
-        writes the bitmaps once."""
-        seg_rows = torch.arange(key_len.shape[1], device=dev)
-        live = int(count.sum())
+    def k3_bytes(key_len, live, num_words) -> int:
+        """What K3 must move: the counts or the valid flags, and the key
+        words and length of each live row (the kernel reads no other row),
+        read once; the bitmaps written once."""
+        live_rows = int((live if key_len.dim() == 1 else live.clamp(
+            max=key_len.shape[1])).sum())
+        return (mb(live) + live_rows * 4 * (KEY_WORDS + 1)
+                + 4 * plan_shards(key_len) * num_words)
 
-        def plain():
-            return [bloom_build_plain(kw_le[s], key_len[s],
-                                      seg_rows < count[s],
-                                      num_words=num_words)
-                    for s in range(key_len.shape[0])]
+    def plan_shards(key_len) -> int:
+        return 1 if key_len.dim() == 1 else key_len.shape[0]
+
+    def k3_row(kw_le, key_len, live, num_words, reps, shape) -> dict:
+        """K3 by its plan beside its plain version."""
+        plan = k3_plan(key_len, num_words)
 
         def kernel():
-            return launch_bloom_build_batched(kw_le, key_len, count,
-                                              num_words=num_words)
+            return k3_call(kw_le, key_len, live, num_words)
 
-        return {"shape": shape, "shards": key_len.shape[0],
-                "capacity": key_len.shape[1], "num_words": num_words,
+        return {"shape": shape, "route": plan.route, "blocks": plan.blocks,
+                "threads": plan.threads, "shards": plan_shards(key_len),
+                "rows": key_len.shape[-1], "num_words": num_words,
                 "reps": reps, "ms": time_ms(kernel, reps),
+                "launches_per_call": check_calls(
+                    "bloom_build", plan.launches, f"K3 {shape}"),
                 "device_ms": device_ms(kernel),
-                "plain_ms": time_ms(plain, reps),
-                "bound_ms": bound(mb(count) + live * 4 * (KEY_WORDS + 1)
-                                  + 4 * key_len.shape[0] * num_words)}
+                "plain_ms": time_ms(lambda: k3_plain(kw_le, key_len, live,
+                                                     num_words), reps),
+                "bound_ms": bound(k3_bytes(key_len, live, num_words))}
+
+    # the plan's constants the K3 sweep varies; each variant names the
+    # route, the threads of a block and (global) the blocks an SM
+    k3_knobs = ("ROWWISE_MAX_SHARDS", "ROWWISE_THREADS", "GLOBAL_THREADS",
+                "GLOBAL_BLOCKS_PER_SM")
+    k3_variants = (
+        [("rowwise", t, None) for t in (128, 256, 512)]
+        + [("global", t, b) for t in (256, 512) for b in (1, 2, 4)]
+        + [("global", 256, 8)])
+
+    def k3_sweep(cases) -> list:
+        """K3 at each of ``cases`` (kw_le, key_len, live, num_words, reps,
+        shape) by every route and grid of ``k3_variants``: each variant's
+        bitmaps against the plain version, then its times. The plan's
+        constants are restored afterwards."""
+        saved = {k: getattr(bloom_kernel, k) for k in k3_knobs}
+        plans = [k3_plan(case[1], case[3]) for case in cases]
+        out = []
+        try:
+            for (kw_le, key_len, live, num_words, reps, shape), planned in (
+                    zip(cases, plans)):
+                want = k3_plain(kw_le, key_len, live, num_words)
+                for route, threads, per_sm in k3_variants:
+                    bloom_kernel.ROWWISE_MAX_SHARDS = (
+                        1 << 30 if route == "rowwise" else 0)
+                    bloom_kernel.ROWWISE_THREADS = threads
+                    bloom_kernel.GLOBAL_THREADS = threads
+                    bloom_kernel.GLOBAL_BLOCKS_PER_SM = per_sm or 1
+                    plan = k3_plan(key_len, num_words)
+                    what = f"K3 sweep {shape} [{route} t{threads} b{per_sm}]"
+                    calls = k3_check(what, kw_le, key_len, live, num_words,
+                                     want)
+
+                    def kernel():
+                        return k3_call(kw_le, key_len, live, num_words)
+
+                    out.append({
+                        "shape": shape, "route": route, "threads": threads,
+                        "blocks_per_sm": per_sm, "blocks": plan.blocks,
+                        "planned": (plan.route, plan.blocks, plan.threads)
+                        == (planned.route, planned.blocks,
+                            planned.threads),
+                        "launches_per_call": calls,
+                        "ms": time_ms(kernel, reps),
+                        "device_ms": device_ms(kernel)})
+        finally:
+            for k, v in saved.items():
+                setattr(bloom_kernel, k, v)
+        return out
 
     bflags = dict(uniform_klen=True, seq32=True, key_words=4)
     # the main path's shape: the bench's 8 shards of 2^17 as one call
@@ -1438,31 +1757,22 @@ def main() -> int:
     b_valid = torch.arange(bench_cfg.capacity, device=dev) < bench_out[
         "count"]
     b_words = bench_cfg.num_bloom_words
-    k3_args = (bench_out["key_words_le"], bench_out["key_len"], b_valid)
-    k3_single = {
-        "shape": "2^17, one shard", "n": bench_cfg.capacity,
-        "num_words": b_words, "reps": SHORT_REPS,
-        "ms": time_ms(lambda: launch_bloom_build(*k3_args,
-                                                 num_words=b_words),
-                      SHORT_REPS),
-        "device_ms": device_ms(lambda: launch_bloom_build(
-            *k3_args, num_words=b_words)),
-        "plain_ms": time_ms(lambda: bloom_build_plain(
-            *k3_args, num_words=b_words), SHORT_REPS),
-        # the valid flags of every row, the key words and length of the
-        # valid rows only
-        "bound_ms": bound(mb(b_valid) + int(bench_out["count"]) * 4
-                          * (KEY_WORDS + 1) + 4 * b_words)}
     svc_out = merge_resolve_batched(*svc_args, **bflags)
-    k3_rows = [
-        k3_row(bench_batch_out["key_words_le"], bench_batch_out["key_len"],
-               bench_batch_out["count"], b_words, SHORT_REPS,
-               "bench 8 x 2^17, batched"),
-        k3_single,
-        k3_row(svc_out["key_words_le"], svc_out["key_len"],
-               svc_out["count"], num_words_for(SERVICE_ENTRIES, 10), REPS,
-               "batched 8 x 2^20")]
+    svc_words = num_words_for(SERVICE_ENTRIES, 10)
+    k3_parity("batched 8 x 2^20", svc_out["key_words_le"],
+              svc_out["key_len"], svc_out["count"], svc_words)
+    k3_cases = [
+        (bench_batch_out["key_words_le"], bench_batch_out["key_len"],
+         bench_batch_out["count"], b_words, SHORT_REPS,
+         "bench 8 x 2^17, batched"),
+        (bench_out["key_words_le"], bench_out["key_len"], b_valid, b_words,
+         SHORT_REPS, "2^17, one shard"),
+        (svc_out["key_words_le"], svc_out["key_len"], svc_out["count"],
+         svc_words, REPS, "batched 8 x 2^20"),
+        (*k3_file, REPS, "one file of 2^21 rows")]
+    k3_rows = [k3_row(*case) for case in k3_cases]
     emit({"phase": "k3_timings", "card": card, "k3": k3_rows})
+    emit({"phase": "k3_sweep", "card": card, "rows": k3_sweep(k3_cases)})
 
     forwards = {}
     for (label, model, args), reps in zip(runs, (SHORT_REPS, SHORT_REPS,

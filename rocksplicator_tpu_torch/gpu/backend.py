@@ -18,8 +18,11 @@ operator, values that are not 8 bytes long under uint64-add, and a
 launch that raises ``needs_cpu_fallback``. A kernel that does not build
 or launch raises. Key-range subcompactions (``max_subcompactions > 1``)
 resolve every slice of a job in ONE batched launch
-(``gpu/compaction_service.resolve_slices_batched``); the memory-budget
-streaming merge is not ported yet.
+(``gpu/compaction_service.resolve_slices_batched``). A job whose projected
+in-RAM image exceeds the compaction memory budget, or that holds more
+than 2^22 entries, streams through the bounded-memory merge
+(``storage/stream_merge.py``) with one K2 call per chunk
+(``gpu/compaction_service.GpuChunkResolver``).
 
 ``NumpyCompactionBackend`` is the vectorized CPU implementation of the
 same algorithm (lexsort + reduceat), and the default fallback.
@@ -69,9 +72,7 @@ def _arrays_from_entries(entries: List[Entry]) -> Optional[dict]:
 class GpuCompactionBackend:
     name = "gpu"
     supports_subcompactions = True
-    # the memory-budget streaming merge is not ported yet: the engine
-    # passes no budget to a backend that does not declare it
-    supports_memory_budget = False
+    supports_memory_budget = True
 
     def __init__(self, device=None, fallback=None):
         """``device``: where the merge runs (None means ``cuda``; raises
@@ -79,8 +80,10 @@ class GpuCompactionBackend:
         routes (default ``NumpyCompactionBackend``)."""
         self.device = resolve_device(device)
         self._fallback = fallback or NumpyCompactionBackend()
-        # host-clock seconds of the last merge_runs_to_files, by stage
+        # host-clock seconds of the last merge_runs_to_files, by stage, and
+        # its chunks when it streamed (0 when it did not)
         self.last_stage_seconds: dict = {}
+        self.last_stream_chunks = 0
 
     def merge_runs(self, runs: List[Iterable[Entry]], merge_op,
                    drop_tombstones: bool) -> Iterator[Entry]:
@@ -179,14 +182,30 @@ class GpuCompactionBackend:
         all-tombstoned result, or None → the engine's tuple path.
         ``max_subcompactions > 1``: the job splits into key-range slices
         resolved as ONE batched launch (the same files as unsliced).
-        ``io_budget`` paces the file writes. Raises TypeError when asked
-        for a memory budget, which this backend does not have yet."""
-        if mem_tracker is not None or memory_budget_bytes:
-            raise TypeError(
-                "GpuCompactionBackend has no compaction memory budget: "
-                "mem_tracker must be None and memory_budget_bytes 0")
+        ``io_budget`` paces the file writes.
+
+        Inputs whose projected lane image exceeds the memory budget
+        (``memory_budget_bytes``, else ``mem_tracker``'s, else the
+        process budget) stream through the bounded-memory merge first,
+        one K2 call per chunk, and write the same files; ``mem_tracker``
+        then records the high-water mark of live lane bytes."""
+        from ..storage.stream_merge import maybe_stream_merge
+        from .compaction_service import GpuChunkResolver
+
         if merge_op is not None and not is_uint64_add(merge_op):
             return None
+        report: dict = {}
+        self.last_stream_chunks = 0
+        streamed = maybe_stream_merge(
+            runs, merge_op, drop_tombstones, path_factory, block_bytes,
+            compression, bits_per_key, target_file_bytes,
+            io_budget=io_budget, mem_tracker=mem_tracker,
+            memory_budget_bytes=memory_budget_bytes,
+            resolver=GpuChunkResolver(self.device), report=report)
+        if streamed is not None:
+            self.last_stream_chunks = report.pop("chunks")
+            self.last_stage_seconds = report
+            return streamed
         stages = {}
         t0 = time.perf_counter()
         parts: List[dict] = []

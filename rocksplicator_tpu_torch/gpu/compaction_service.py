@@ -13,6 +13,9 @@ Two integration levels, as in the JAX package:
   entries, bloom words and counts. ``compact_shard_stream`` runs many
   groups of such launches double-buffered on CUDA streams.
 
+``GpuChunkResolver`` resolves the streaming merge's chunks
+(``storage/stream_merge.py``) on the card, one K2 call per chunk.
+
 Built on them: ``resolve_slices_batched`` (one compaction's key-range
 slices as one batch; ``resolve_slices_on_device`` keeps its result on the
 card for the engine seam's subcompactions) and
@@ -45,8 +48,8 @@ from ..ops.kv_format import (UnsupportedBatch, fast_flags, unpack_entries)
 from ..ops.lanes import u32_numpy, u32_tensor
 from ..storage.bloom import BloomFilter, hash_words, num_words_for
 from ..storage.merge import is_uint64_add
-from .backend import GpuCompactionBackend, cpu_merge_resolve
-from .chunked import FIELDS, INPUT_FIELDS, launch_rows
+from .backend import GpuCompactionBackend, _merge_kind, cpu_merge_resolve
+from .chunked import FIELDS, INPUT_FIELDS, launch_rows, run_kernel_arrays
 
 log = logging.getLogger(__name__)
 
@@ -789,3 +792,51 @@ def compact_dbs_batched(dbs, group_size: int = 8, pool=None, device=None):
                 db.abort_full_compaction(plan)
             except Exception:
                 pass
+
+
+# ---------------------------------------------------------------------------
+# the streaming merge's chunk resolver on the card
+# ---------------------------------------------------------------------------
+
+
+class GpuChunkResolver:
+    """The card's face of the streaming merge (``storage/stream_merge.py``),
+    counterpart of ``TpuChunkResolver``: each chunk is one merge-resolve
+    launch (K2, or K1 and the torch resolve under the ``pallas`` sort
+    backend) whose outputs stay on the card at submit; ``collect`` copies
+    them to the host one chunk later, while the pipeline decodes the next
+    chunk's windows. Scope, as in the reference: submit still waits for
+    the kernel (``run_kernel_arrays`` reads the count and the
+    ``needs_cpu_fallback`` flag), so only the readback overlaps the next
+    decode. Chunks pad to the next power of two of their rows (at least
+    256), so steady-state launches share one shape.
+
+    ``device``: None means ``cuda`` (raises without CUDA). A chunk the
+    kernel flags for the CPU (a key with 2^16 rows or more) raises
+    ``_StreamDecline``: the whole stream declines to the in-RAM route, as
+    in the reference."""
+
+    fields = FIELDS  # chunk lanes carry the LE key words too
+    pipelined = True  # one chunk stays in flight behind the decode
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def submit(self, parts, lanes: dict, total: int, vw: int, merge_op,
+               drop_tombstones: bool):
+        from ..storage.stream_merge import _StreamDecline
+
+        uniform_klen, seq32, key_words = fast_flags(
+            lanes["key_len"], lanes["seq_hi"], np.ones(total, dtype=bool))
+        arrays, count = run_kernel_arrays(
+            lanes, total, _merge_kind(merge_op), drop_tombstones,
+            pad_to=_next_pow2(total), uniform_klen=uniform_klen,
+            seq32=seq32, key_words=key_words, to_host=False,
+            device=self.device)
+        if arrays is None:
+            raise _StreamDecline("the kernel flagged a chunk for the CPU")
+        return arrays, count
+
+    def collect(self, handle) -> Tuple[dict, int]:
+        arrays, count = handle
+        return {f: u32_numpy(a) for f, a in arrays.items()}, count

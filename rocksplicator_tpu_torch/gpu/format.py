@@ -6,9 +6,11 @@ turns them into a TSST file without per-entry Python: PLANAR blocks
 (``storage/planar.py``, the lanes as u32 planes with word-domain block
 checksums) or uniform-stride entry rows, and a bloom bitmap that may come
 prebuilt from kernel K3. ``read_sst_arrays`` is the source side: a
-sink-written or uniform-stride file decodes straight back into lanes.
-The files are byte-identical to those the JAX package writes from the
-same lanes. Everything here is numpy on the host.
+sink-written or uniform-stride file decodes straight back into lanes;
+``SstBlockLaneSource`` decodes such a file a block range at a time for the
+streaming merge (``storage/stream_merge.py``). The files are
+byte-identical to those the JAX package writes from the same lanes.
+Everything here is numpy on the host.
 """
 
 from __future__ import annotations
@@ -133,6 +135,75 @@ def read_sst_arrays(reader) -> Optional[Dict[str, np.ndarray]]:
     except UnsupportedBatch:
         return None
     return _with_global_seqno(lanes, reader.global_seqno)
+
+
+class SstBlockLaneSource:
+    """Block-granular lane decoder over ONE streamable TSST file: the
+    source side of the streaming merge. Where ``read_sst_arrays`` decodes
+    the whole file, this decodes a block range on demand, so a
+    compaction's working set stays one window per input run.
+
+    ``reader`` is either package's ``SSTReader`` (``_index``, ``props``,
+    ``num_entries``, ``global_seqno``, ``_read_block(i, fill_cache=False)``:
+    block reads never fill a block cache). ``probe`` returns None for a
+    file the lanes cannot stream; a block that later breaks the probed
+    layout raises UnsupportedBatch and the stream declines."""
+
+    def __init__(self, reader, kind: str, klen: int, vlen: int):
+        self.reader = reader
+        self.kind = kind  # "planar" | "uniform"
+        self.klen = klen
+        self.vlen = vlen  # non-delete value width
+        self.num_blocks = len(reader._index)
+        self.num_entries = int(reader.num_entries)
+
+    @classmethod
+    def probe(cls, reader) -> Optional["SstBlockLaneSource"]:
+        props = reader.props
+        if not reader.num_entries or not reader._index:
+            return None
+        for kind in ("planar", "uniform"):
+            widths = props.get(kind)
+            if not widths:
+                continue
+            try:
+                klen, vlen = int(widths[0]), int(widths[1])
+            except (TypeError, ValueError, IndexError, KeyError):
+                return None
+            if not (0 < klen <= 24) or vlen < 0:
+                return None
+            return cls(reader, kind, klen, vlen)
+        # no sink prop (a flush-written file): infer the stride from block
+        # 0; decode_blocks checks every later block against it
+        b0 = reader._read_block(0, fill_cache=False)
+        inferred = _infer_uniform_widths(b0)
+        if inferred is None:
+            return None
+        return cls(reader, "uniform", *inferred)
+
+    def decode_blocks(self, b0: int, b1: int) -> Dict[str, np.ndarray]:
+        """Lanes of blocks [b0, b1). Raises UnsupportedBatch when a block
+        breaks the probed layout."""
+        if self.kind == "planar":
+            try:
+                parts = [decode_planar_block(
+                    self.reader._read_block(i, fill_cache=False))
+                    for i in range(b0, b1)]
+            except Exception as e:
+                raise UnsupportedBatch(f"planar stream decode: {e}")
+            lanes = {f: np.concatenate([p[f] for p in parts])
+                     for f in parts[0]}
+            kl = lanes["key_len"]
+            if len(kl) and not (kl == self.klen).all():
+                raise UnsupportedBatch("planar stream: klen drift")
+            vl = lanes["val_len"][lanes["vtype"] != _DELETE]
+            if len(vl) and not (vl == self.vlen).all():
+                raise UnsupportedBatch("planar stream: vlen drift")
+        else:
+            lanes = _decode_uniform_rows(b"".join(
+                self.reader._read_block(i, fill_cache=False)
+                for i in range(b0, b1)), self.klen, self.vlen)
+        return _with_global_seqno(lanes, self.reader.global_seqno)
 
 
 def _infer_uniform_widths(b0: bytes):

@@ -87,6 +87,28 @@ class BloomFilter:
         np.bitwise_or.at(bf.words, h1 % np.uint32(bf.num_words), mask)
         return bf
 
+    @classmethod
+    def build_from_arrays(cls, key_bytes_matrix, key_lens,
+                          bits_per_key: int = 10) -> "BloomFilter":
+        """Bulk build from an (n, width) u8 key matrix and per-row lengths
+        (clipped to the width): the key of row i is its first len bytes.
+        No per-key Python objects; the same bits as ``build``."""
+        n = int(len(key_lens))
+        bf = cls(num_words_for(n, bits_per_key))
+        if n == 0:
+            return bf
+        mat = np.asarray(key_bytes_matrix, dtype=np.uint8).reshape(n, -1)
+        lens = np.minimum(np.asarray(key_lens, dtype=np.uint64),
+                          np.uint64(mat.shape[1])).astype(np.uint32)
+        width = min(mat.shape[1], PREFIX_BYTES)
+        prefix = np.zeros((n, PREFIX_BYTES), dtype=np.uint8)
+        prefix[:, :width] = np.where(
+            np.arange(width, dtype=np.uint32)[None, :] < lens[:, None],
+            mat[:, :width], 0)
+        h1, mask = hash_words(prefix.view("<u4"), lens)
+        np.bitwise_or.at(bf.words, h1 % np.uint32(bf.num_words), mask)
+        return bf
+
     def to_bytes(self) -> bytes:
         return struct.pack("<I", self.num_words) + self.words.astype(
             "<u4").tobytes()

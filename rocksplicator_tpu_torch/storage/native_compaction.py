@@ -1,5 +1,6 @@
-"""Key-range subcompaction helpers — the port's copy of the slicing part of
-``rocksplicator_tpu/storage/native_compaction.py``.
+"""Key-range subcompaction helpers and the CPU chunk resolve — the port's
+copy of the parts of ``rocksplicator_tpu/storage/native_compaction.py``
+that the engine seam and the streaming merge use.
 
 One large compaction splits into disjoint KEY-RANGE slices. Boundaries
 are chosen from the input runs' own key distribution (evenly spaced rows
@@ -9,6 +10,10 @@ one slice, and the per-slice resolve equals the unsliced single pass.
 Slice outputs concatenate in boundary order. The port resolves every
 slice of a job in one batched launch
 (``gpu/compaction_service.resolve_slices_batched``).
+
+``cpu_chunk_resolve`` resolves one chunk of the streaming merge on the
+host and ``bulk_bloom`` builds an output file's bloom from its lanes
+(``storage/stream_merge.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+# The in-RAM direct path's entry cap: a larger compaction streams.
+MAX_DIRECT_ENTRIES = 1 << 22
 
 # Subcompactions engage only when every slice would carry at least this
 # many entries (tests lower it to force slicing on small fixtures).
@@ -117,3 +125,40 @@ def slice_parts(parts: List[dict], bounds: List[bytes], si: int,
         if hi > lo:
             out.append({f: p[f][lo:hi] for f in fields})
     return out
+
+
+def cpu_chunk_resolve(lanes: dict, total: int, vw: int, merge_op,
+                      drop_tombstones: bool) -> Tuple[dict, int]:
+    """The merge-resolve of one chunk on the host: (the kept rows' lanes
+    without ``key_words_le``, count). The reference runs its native k-way
+    merge where it is built and numpy otherwise, with the same output;
+    the port runs numpy (``gpu/backend.numpy_merge_resolve``)."""
+    from ..gpu.backend import numpy_merge_resolve
+    from ..ops.kv_format import KVBatch
+
+    batch = KVBatch(
+        key_words_be=lanes["key_words_be"],
+        # the resolve reads no LE key words; the bloom derives its bytes
+        # from the BE lanes
+        key_words_le=lanes["key_words_be"],
+        key_len=lanes["key_len"], seq_hi=lanes["seq_hi"],
+        seq_lo=lanes["seq_lo"], vtype=lanes["vtype"],
+        val_words=lanes["val_words"], val_len=lanes["val_len"],
+        valid=np.ones(total, dtype=bool), val_bytes=vw * 4)
+    out, count = numpy_merge_resolve(
+        batch, uint64_add=merge_op is not None,
+        drop_tombstones=drop_tombstones)
+    fields = ("key_words_be", "key_len", "seq_hi", "seq_lo", "vtype",
+              "val_words", "val_len")
+    return dict(zip(fields, out)), count
+
+
+def bulk_bloom(sub: dict, n: int, klen0: int, bits_per_key: int):
+    """The bloom of the first ``n`` rows' keys (their first ``klen0``
+    bytes), built in bulk on the host."""
+    from .bloom import BloomFilter
+
+    kb = (np.ascontiguousarray(sub["key_words_be"][:n].astype(">u4"))
+          .view(np.uint8).reshape(n, -1)[:, :klen0])
+    return BloomFilter.build_from_arrays(kb, sub["key_len"][:n],
+                                         bits_per_key)

@@ -112,3 +112,84 @@ def test_bloom_build_batched_matches_jax_vmap():
     assert got.shape == (3, 77)
     np.testing.assert_array_equal(want, u32_numpy(got))
     assert not want[0].any()
+
+
+# -- K3's plan: the route and the grid by shape (no card needed) ----------
+
+from rocksplicator_tpu_torch.ops import bloom_kernel  # noqa: E402
+from rocksplicator_tpu_torch.storage.bloom import num_words_for  # noqa: E402
+
+
+@pytest.mark.parametrize("shards,rows,num_words,route,blocks", [
+    # the bench's batched forward: 8 x 2^17 rows, a full grid of 264
+    (8, 1 << 17, 40960, "global", 264),
+    # one shard of 2^17 (entry(), a single-shard forward): a thread a row
+    (1, 1 << 17, 40960, "rowwise", 512),
+    # the service: 8 x 2^20
+    (8, 1 << 20, num_words_for(1 << 20, 10), "global", 264),
+    # one output file's bloom of 2^21 rows (the engine seam)
+    (1, 1 << 21, num_words_for(1 << 21, 10), "rowwise", 8192),
+    # many small shards: still one cooperative grid
+    (256, 4096, 1280, "global", 264),
+    # the service's group of 12 DBs
+    (12, 1 << 18, num_words_for(1 << 18, 10), "global", 264),
+    # two tiny shards: a grid of one block, not of 264
+    (2, 100, 64, "global", 1),
+])
+def test_plan_bloom_route_by_shape(shards, rows, num_words, route, blocks):
+    """One bitmap takes the rowwise route (a memset and one thread a row:
+    two CUDA launches); a batch of bitmaps takes the cooperative global
+    route (one launch), its grid no larger than its rows need nor than
+    GLOBAL_BLOCKS_PER_SM blocks an SM."""
+    plan = bloom_kernel.plan_bloom(shards, rows, num_words)
+    assert (plan.route, plan.blocks) == (route, blocks)
+    if route == "rowwise":
+        assert plan.launches == 2
+        assert plan.threads == bloom_kernel.ROWWISE_THREADS
+        assert plan.blocks * plan.threads >= shards * rows
+    else:
+        assert plan.launches == 1
+        assert plan.threads == bloom_kernel.GLOBAL_THREADS
+        assert 1 <= plan.blocks <= (bloom_kernel.NUM_SMS
+                                    * bloom_kernel.GLOBAL_BLOCKS_PER_SM)
+        assert plan.blocks <= -(-shards * rows // plan.threads)
+
+
+def test_plan_bloom_rowwise_limit_is_a_shard_count():
+    """The route turns on the number of bitmaps alone: at the limit and
+    over it, for any row count."""
+    limit = bloom_kernel.ROWWISE_MAX_SHARDS
+    for rows in (1, 4096, 1 << 21):
+        assert bloom_kernel.plan_bloom(limit, rows, 64).route == "rowwise"
+        assert bloom_kernel.plan_bloom(limit + 1, rows, 64).route == "global"
+
+
+@pytest.mark.parametrize("args", [
+    (0, 256, 64), (1, 0, 64), (1, 256, 0), (8, 0, 64), (8, 256, 0),
+    (bloom_kernel.MAX_GLOBAL_SHARDS + 1, 256, 64),
+])
+def test_plan_bloom_refuses_bad_shapes(args):
+    with pytest.raises(ValueError):
+        bloom_kernel.plan_bloom(*args)
+
+
+def test_k3_wrappers_refuse_bad_inputs():
+    """Wrong types or shapes raise TypeError; CPU tensors of the right
+    shapes raise ValueError (the kernel runs on CUDA tensors only)."""
+    kw = torch.zeros((64, 6), dtype=torch.int32)
+    kl = torch.zeros(64, dtype=torch.int32)
+    valid = torch.ones(64, dtype=torch.bool)
+    for bad in ((kw[:, :4], kl, valid), (kw, kl.long(), valid),
+                (kw, kl, valid[:32]), (kw, kl, valid.int())):
+        with pytest.raises(TypeError):
+            bloom_kernel.launch_bloom_build(*bad, num_words=8)
+    with pytest.raises(ValueError):
+        bloom_kernel.launch_bloom_build(kw, kl, valid, num_words=8)
+    count = torch.tensor([64, 3], dtype=torch.int32)
+    skw, skl = kw.view(1, 64, 6).repeat(2, 1, 1), kl.view(1, 64).repeat(2, 1)
+    for bad in ((skw, kl, count), (skw[:, :, :4], skl, count),
+                (skw, skl, count[:1]), (skw, skl, count.long())):
+        with pytest.raises(TypeError):
+            bloom_kernel.launch_bloom_build_batched(*bad, num_words=8)
+    with pytest.raises(ValueError):
+        bloom_kernel.launch_bloom_build_batched(skw, skl, count, num_words=8)

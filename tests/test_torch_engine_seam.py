@@ -25,6 +25,7 @@ from rocksplicator_tpu_torch.gpu import (GpuCompactionBackend,
                                          NumpyCompactionBackend)
 from rocksplicator_tpu_torch.ops.kv_format import pack_entries
 from rocksplicator_tpu_torch.storage import native_compaction
+from rocksplicator_tpu_torch.storage import stream_merge as port_stream_merge
 from rocksplicator_tpu_torch.storage.merge import is_uint64_add
 
 pack64 = struct.Struct("<q").pack
@@ -32,9 +33,10 @@ pack64 = struct.Struct("<q").pack
 
 @pytest.fixture(autouse=True)
 def _reference_paths(monkeypatch):
-    """The reference compacts in RAM (no streaming merge) on its lax
-    sort path, whatever the environment says."""
-    monkeypatch.setattr(stream_merge, "STREAM_MODE_OVERRIDE", "never")
+    """Both packages compact in RAM (no streaming merge), the reference
+    on its lax sort path, whatever the environment says."""
+    for mod in (stream_merge, port_stream_merge):
+        monkeypatch.setattr(mod, "STREAM_MODE_OVERRIDE", "never")
     monkeypatch.setenv("RSTPU_FLAG_SORT_BACKEND", "lax")
     old = FLAGS.get("sort_backend")
     FLAGS.set("sort_backend", "lax")
@@ -59,6 +61,11 @@ def _counters(db, rounds=3, keys=120, seed=0):
             else:
                 db.delete(key)
         db.flush()
+
+
+def _many_counters(db):
+    # runs longer than a stream window (256 entries): several chunks
+    _counters(db, keys=600)
 
 
 def _puts_and_deletes(db):
@@ -150,6 +157,8 @@ CASES = {
     "wide_values_planar": (dict(), _wide_values, True),
     "subcompactions": (dict(merge_operator=UInt64AddOperator,
                             max_subcompactions=4), _counters, True),
+    "streamed": (dict(merge_operator=UInt64AddOperator, block_bytes=2048),
+                 _many_counters, True),
 }
 
 
@@ -199,6 +208,11 @@ def test_gpu_backend_writes_the_reference_files(case, tmp_path,
             return out
 
         monkeypatch.setattr(gpu_backend, "chunked_merge", spy)
+    if case == "streamed":
+        # both packages stream every compaction, in chunks of 256 entries
+        for mod in (stream_merge, port_stream_merge):
+            monkeypatch.setattr(mod, "STREAM_MODE_OVERRIDE", "always")
+            monkeypatch.setattr(mod, "CHUNK_ENTRIES_OVERRIDE", 256)
     gpu = GpuCompactionBackend(device="cpu")
     sliced = []
     if case == "subcompactions":
@@ -216,9 +230,12 @@ def test_gpu_backend_writes_the_reference_files(case, tmp_path,
     sink = gpu.merge_runs_to_files
     wrote = []
 
+    stream_chunks = []
+
     def sink_spy(*a, **kw):
         out = sink(*a, **kw)
         wrote.append(out is not None)
+        stream_chunks.append(gpu.last_stream_chunks)
         return out
 
     gpu.merge_runs_to_files = sink_spy
@@ -240,6 +257,10 @@ def test_gpu_backend_writes_the_reference_files(case, tmp_path,
         assert chunked_calls and all(chunked_calls), chunked_calls
     if case == "subcompactions":
         assert sliced == [True, True], sliced
+    if case == "streamed":
+        assert all(c >= 2 for c in stream_chunks), stream_chunks
+    else:
+        assert stream_chunks == [0, 0], stream_chunks
 
 
 def _entries(seed, n=300, keys=60, klen=10):
@@ -308,14 +329,16 @@ def test_uint64_add_is_recognised_by_name():
 
 
 def test_file_sink_refuses_capabilities_it_lacks(tmp_path):
-    """Subcompactions are taken; the memory budget is not ported yet."""
+    """Subcompactions and the memory budget are both taken: the engine
+    hands the port its tracker and budget, and no TypeError is raised."""
     backend = GpuCompactionBackend(device="cpu")
     assert backend.supports_subcompactions
-    assert not backend.supports_memory_budget
+    assert backend.supports_memory_budget
     args = ([], None, True, lambda: str(tmp_path / "x.tsst"), 32768, 1, 10,
             1 << 20)
-    for kw in (dict(memory_budget_bytes=1), dict(mem_tracker=object())):
-        with pytest.raises(TypeError):
-            backend.merge_runs_to_files(*args, **kw)
+    tracker = stream_merge.CompactionMemoryBudget.get().tracker()
+    for kw in (dict(memory_budget_bytes=1), dict(mem_tracker=tracker),
+               dict(mem_tracker=tracker, memory_budget_bytes=1 << 20)):
+        assert backend.merge_runs_to_files(*args, **kw) is None
     assert backend.merge_runs_to_files(*args) is None
     assert backend.merge_runs_to_files(*args, max_subcompactions=4) is None

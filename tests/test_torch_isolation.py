@@ -42,6 +42,7 @@ seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
         "gpu.compaction_service", "storage.errors", "storage.merge",
         "storage.compaction", "storage.bloom", "storage.rlz",
         "storage.planar", "storage.sst", "storage.native_compaction",
+        "storage.stream_merge", "storage.compaction_scheduler",
         "utils.flags"}
 missing = {m for m in seam if pkg.__name__ + "." + m not in names}
 assert not missing, missing
@@ -80,7 +81,18 @@ with tempfile.TemporaryDirectory() as d:
     assert [p for p, _ in outs] == [d + "/out.tsst"], outs
     reader = SSTReader(d + "/out.tsst")
     got = [(k, v) for k, _s, _t, v in reader.iterate()]
+    # the streaming merge re-merges that file into the same bytes
+    from rocksplicator_tpu_torch.storage import stream_merge
+    stream_merge.STREAM_MODE_OVERRIDE = "always"
+    backend = GpuCompactionBackend(device="cpu")
+    again = backend.merge_runs_to_files(
+        [reader], UInt64AddOperator(), True, lambda: d + "/again.tsst",
+        32768, 1, 10, 1 << 20)
     reader.close()
+    assert backend.last_stream_chunks == 1, backend.last_stream_chunks
+    assert [p for p, _ in again] == [d + "/again.tsst"], again
+    assert (open(d + "/again.tsst", "rb").read()
+            == open(d + "/out.tsst", "rb").read())
 assert got == [(b"k%03d" % i, pk(100 + i)) for i in range(50)], got[:3]
 print("SEAM_ON_CPU")
 
