@@ -56,6 +56,23 @@ PyTorch built for CUDA. It
    over 12 stub DBs of 4 planar runs of 2^18 entries (``service_dbs``: a
    group of 8 and a padded group of 4 on the stream path, every file
    byte-identical to the numpy-resolved sink's);
+4d. drives the post-ingest caller, ``admin.BatchCompactor``, over the same
+   12 stub DBs submitted from 12 threads at once (``batch_compactor``:
+   the leader's batches, one K2 call a launch group and one K3 call a
+   group and a file, every file byte-identical to the numpy-resolved
+   sink's, no DB compacted by the per-DB fallback, no error logged by the
+   port's admin logger);
+4e. before each engine-seam and service call zeroes the port's Stats,
+   empties its span collector (every root kept) and disarms its
+   failpoints, and after it checks them: the stream counters
+   (``compaction.stream_chunks`` = the chunks = the K2 (K1) calls, one
+   ``stream_merges``, no ``stream_declines``) and one ``compact.stream``
+   span a streamed call, ``compaction.subcompactions`` = the non-empty
+   slices, ``service_batch``'s ``tpu.compact_batch`` root with its
+   ``tpu.stage``, ``tpu.kernel`` and ``tpu.unpack`` children and no
+   ``cpu_fallbacks``, ``service_dbs``'s ``admin.compact_stage`` and
+   ``admin.compact_install`` spans; and times the instrumentation's calls
+   on the host (``instrumented_seconds``);
 5. times each kernel and each forward (median of CUDA-event timed runs
    after warm-up: 10 at the 2^22 and batched 8 x 2^20 shapes, 50 at the
    host-bound small shapes, whose medians move most from call to call)
@@ -390,6 +407,7 @@ def engine_seam_job(dev, work_dir: str, card: str) -> tuple:
     import torch
 
     from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+    from rocksplicator_tpu_torch.gpu import compaction_service
     from rocksplicator_tpu_torch.gpu.backend import numpy_merge_resolve
     from rocksplicator_tpu_torch.gpu.compaction_service import (
         GpuCompactionService)
@@ -446,6 +464,17 @@ def engine_seam_job(dev, work_dir: str, card: str) -> tuple:
     launches = {}
     variants = [(name, flag, 1) for name, flag in SEAM_FLAGS.items()]
     variants.append(("subcompact", SEAM_FLAGS["fused"], 4))
+    # the slices the backend hands the service, counted as they pass, to
+    # hold the port's compaction.subcompactions counter against
+    resolve_on_device = compaction_service.resolve_slices_on_device
+    slices_seen = []
+
+    def counting_resolve(slices, *args, **kwargs):
+        slices_seen.append(sum(
+            1 for pieces in slices
+            if sum(p["key_len"].shape[0] for p in pieces)))
+        return resolve_on_device(slices, *args, **kwargs)
+
     for name, flag, subcompactions in variants:
         _sort_flag(flag)
         readers = [SSTReader(p) for p in inputs]
@@ -456,8 +485,10 @@ def engine_seam_job(dev, work_dir: str, card: str) -> tuple:
             return made[-1]
 
         backend = GpuCompactionBackend(device=dev)
+        compaction_service.resolve_slices_on_device = counting_resolve
         try:
             torch.cuda.synchronize()
+            reset_observability()
             _build.reset_launches()
             t0 = time.time()
             outs = backend.merge_runs_to_files(
@@ -467,7 +498,10 @@ def engine_seam_job(dev, work_dir: str, card: str) -> tuple:
             torch.cuda.synchronize()
             seconds = time.time() - t0
             launches[name] = dict(_build.LAUNCHES)
+            subcompactions_counted = read_counters(
+                ("compaction.subcompactions",))["subcompactions"]
         finally:
+            compaction_service.resolve_slices_on_device = resolve_on_device
             for r in readers:
                 r.close()
         if outs is None or [p for p, _ in outs] != made:
@@ -499,12 +533,21 @@ def engine_seam_job(dev, work_dir: str, card: str) -> tuple:
                 dev).last_host_recomputes:
             raise AssertionError("engine seam subcompact: a slice was "
                                  "recomputed on the host")
+        # the port's counter: one a non-empty slice, none unsliced
+        want_counted = slices_seen[0] if name == "subcompact" else 0
+        if (name == "subcompact" and (len(slices_seen) != 1
+                                      or slices_seen[0] < 2)) \
+                or subcompactions_counted != want_counted:
+            raise AssertionError(
+                f"engine seam job [{name}]: compaction.subcompactions "
+                f"{subcompactions_counted}, non-empty slices {slices_seen}")
         for path in made:
             os.remove(path)
         report["backends"][name] = {
             "launches": launches[name], "seconds": seconds,
             "entries_per_s": n_in / seconds,
             "stage_seconds": backend.last_stage_seconds,
+            "subcompactions_counted": subcompactions_counted,
             "identical_files": len(outs)}
     sub = report["backends"].pop("subcompact")
     sub_launches = launches.pop("subcompact")
@@ -709,9 +752,73 @@ def _stream_mode(mode) -> None:
     stream_merge.STREAM_MODE_OVERRIDE = mode
 
 
+def reset_observability() -> None:
+    """Before a phase: zero the port's Stats, empty its span collector
+    (every root sampled, so a phase's spans are all kept) and disarm its
+    failpoints."""
+    from rocksplicator_tpu_torch.observability.collector import SpanCollector
+    from rocksplicator_tpu_torch.testing import failpoints as fp
+    from rocksplicator_tpu_torch.utils.stats import Stats
+
+    Stats.reset_for_test()
+    SpanCollector.reset_for_test()
+    SpanCollector.get().configure(sample_rate=1.0)
+    fp.reset_for_test()
+
+
+STREAM_COUNTERS = ("compaction.stream_chunks", "compaction.stream_merges",
+                   "compaction.stream_refills", "compaction.stream_declines")
+
+
+def read_counters(names=STREAM_COUNTERS) -> dict:
+    """The port's Stats counters of ``names``, as ints."""
+    from rocksplicator_tpu_torch.utils.stats import Stats
+
+    stats = Stats.get()
+    return {n.split(".", 1)[1]: int(stats.get_counter(n)) for n in names}
+
+
+def read_spans() -> list:
+    """Every span the port's collector kept, oldest first."""
+    from rocksplicator_tpu_torch.observability.collector import SpanCollector
+
+    return SpanCollector.get().snapshot()
+
+
+def instrumentation_cost(calls: int = 200_000) -> dict:
+    """Host microseconds a call of the instrumentation the port's
+    streaming merge runs per chunk and per refill: an unarmed
+    ``fp.hit``, a ``Stats.incr``, and a kept child span under a kept
+    root."""
+    from rocksplicator_tpu_torch.observability.span import start_span
+    from rocksplicator_tpu_torch.testing import failpoints as fp
+    from rocksplicator_tpu_torch.utils.stats import Stats
+
+    reset_observability()
+    stats = Stats.get()
+    out = {}
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fp.hit("compact.stream.chunk")
+    out["fp_hit_us"] = (time.perf_counter() - t0) / calls * 1e6
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        stats.incr("compaction.stream_chunks")
+    out["stats_incr_us"] = (time.perf_counter() - t0) / calls * 1e6
+    spans = calls // 100
+    with start_span("cost.root", always=True):
+        t0 = time.perf_counter()
+        for _ in range(spans):
+            with start_span("cost.child"):
+                pass
+        out["child_span_us"] = (time.perf_counter() - t0) / spans * 1e6
+    reset_observability()
+    return out
+
+
 def _streamed(backend, readers, path_factory, tracker, budget: int = 0):
     """One merge_runs_to_files call that must stream: (outputs, seconds,
-    launches)."""
+    launches, the port's stream counters of the call)."""
     import torch
 
     from rocksplicator_tpu_torch.ops import _build
@@ -719,6 +826,7 @@ def _streamed(backend, readers, path_factory, tracker, budget: int = 0):
     from rocksplicator_tpu_torch.storage.sst import COMPRESSION_ZLIB
 
     torch.cuda.synchronize()
+    reset_observability()
     _build.reset_launches()
     t0 = time.time()
     outs = backend.merge_runs_to_files(
@@ -726,19 +834,28 @@ def _streamed(backend, readers, path_factory, tracker, budget: int = 0):
         COMPRESSION_ZLIB, 10, SEAM_TARGET_FILE_BYTES, mem_tracker=tracker,
         memory_budget_bytes=budget)
     torch.cuda.synchronize()
-    return outs, time.time() - t0, dict(_build.LAUNCHES)
+    return outs, time.time() - t0, dict(_build.LAUNCHES), read_counters()
 
 
 def _check_stream(what: str, outs, made: list, want: list, backend,
                   tracker, peak_limit: int, launches: dict,
-                  merge_kernel: str) -> None:
-    """Streamed with no decline, one merge launch per chunk, the peak
-    within ``peak_limit``, the files of the reference."""
+                  merge_kernel: str, counters: dict) -> None:
+    """Streamed with no decline, one merge launch per chunk, the port's
+    counters agreeing (a chunk and a launch per stream_chunks, one
+    stream_merges, no stream_declines), the peak within ``peak_limit``,
+    the files of the reference."""
     if outs is None or [p for p, _ in outs] != made:
         raise AssertionError(f"{what}: the stream declined ({outs})")
     chunks = backend.last_stream_chunks
     if chunks < 2 or launches[merge_kernel] != chunks:
         raise AssertionError(f"{what}: {chunks} chunks, launches {launches}")
+    if (counters["stream_chunks"] != chunks or counters["stream_merges"] != 1
+            or counters["stream_declines"] != 0
+            or counters["stream_refills"] < 4):
+        raise AssertionError(f"{what}: counters {counters}, {chunks} chunks")
+    spans = [d for d in read_spans() if d["name"] == "compact.stream"]
+    if len(spans) != 1 or spans[0]["annotations"]["runs"] != 4:
+        raise AssertionError(f"{what}: compact.stream spans {spans}")
     if not 0 < tracker.peak <= peak_limit:
         raise AssertionError(f"{what}: peak {tracker.peak} bytes, limit "
                              f"{peak_limit}")
@@ -785,6 +902,7 @@ def engine_seam_stream(dev, work_dir: str, card: str) -> tuple:
         want, pf = outputs("stream_want")
         tracker = stream_merge.CompactionMemoryBudget.get().tracker()
         report = {}
+        reset_observability()
         t0 = time.time()
         got = stream_merge.maybe_stream_merge(
             readers, UInt64AddOperator(), True, pf, 32 * 1024,
@@ -795,12 +913,19 @@ def engine_seam_stream(dev, work_dir: str, card: str) -> tuple:
         if got is None or len(want) < 2:
             raise AssertionError(f"engine seam stream: the numpy stream "
                                  f"wrote {want}")
+        numpy_counters = read_counters()
+        if (numpy_counters["stream_chunks"] != report["chunks"]
+                or numpy_counters["stream_merges"] != 1):
+            raise AssertionError(f"engine seam stream: the numpy stream's "
+                                 f"counters {numpy_counters}, "
+                                 f"{report['chunks']} chunks")
         result = {"card": card, "runs": 4, "entries_in": n_in,
                   "entries_out": sum(p["num_entries"] for _, p in got),
                   "files": len(want), "budget_bytes": budget,
                   "write_inputs_s": write_inputs_s,
                   "numpy_stream_s": reference_s,
                   "numpy_stream_chunks": report["chunks"],
+                  "numpy_stream_counters": numpy_counters,
                   "numpy_stream_peak_bytes": tracker.peak, "backends": {}}
         launches = {}
         for name, flag in SEAM_FLAGS.items():
@@ -808,15 +933,15 @@ def engine_seam_stream(dev, work_dir: str, card: str) -> tuple:
             made, pf = outputs(f"stream_{name}")
             backend = GpuCompactionBackend(device=dev)
             tracker = stream_merge.CompactionMemoryBudget.get().tracker()
-            outs, seconds, launches[name] = _streamed(backend, readers, pf,
-                                                      tracker)
+            outs, seconds, launches[name], counters = _streamed(
+                backend, readers, pf, tracker)
             merge_kernel = ("bitonic_sort" if name == "bitonic"
                             else "fused_resolve")
             _check_stream(f"engine seam stream [{name}]", outs, made, want,
                           backend, tracker, budget, launches[name],
-                          merge_kernel)
+                          merge_kernel, counters)
             result["backends"][name] = {
-                "chunks": backend.last_stream_chunks,
+                "chunks": backend.last_stream_chunks, "counters": counters,
                 "peak_bytes": tracker.peak, "seconds": seconds,
                 "entries_per_s": n_in / seconds,
                 "stage_seconds": backend.last_stage_seconds,
@@ -864,20 +989,22 @@ def engine_seam_stream_budget(dev, work_dir: str, card: str) -> tuple:
     tracker = stream_merge.CompactionMemoryBudget.get().tracker()
     readers = [SSTReader(p) for p in inputs]
     try:
-        outs, seconds, launches = _streamed(backend, readers, path_factory,
-                                            tracker, budget)
+        outs, seconds, launches, counters = _streamed(
+            backend, readers, path_factory, tracker, budget)
     finally:
         for r in readers:
             r.close()
     _check_stream("engine seam stream budget", outs, made, want, backend,
-                  tracker, budget + sink_bytes, launches, "fused_resolve")
+                  tracker, budget + sink_bytes, launches, "fused_resolve",
+                  counters)
     for path in made:
         os.remove(path)
     return {"card": card, "runs": 4, "entries_in": 4 * SEAM_RUN_ENTRIES,
             "budget_bytes": budget, "sink_file_buffer_bytes": sink_bytes,
             "peak_bytes": tracker.peak,
             "peak_over_budget_bytes": tracker.peak - budget,
-            "chunks": backend.last_stream_chunks, "seconds": seconds,
+            "chunks": backend.last_stream_chunks, "counters": counters,
+            "seconds": seconds,
             "entries_per_s": 4 * SEAM_RUN_ENTRIES / seconds,
             "stage_seconds": backend.last_stage_seconds,
             "launches": launches, "identical_files": len(made)}, launches
@@ -906,6 +1033,7 @@ def service_batch(dev, card: str) -> tuple:
     svc = GpuCompactionService(device=dev, sort_backend="fused")
     svc.compact_shard_batch(batches[:1], return_arrays=True)  # warm-up
     torch.cuda.synchronize()
+    reset_observability()
     _build.reset_launches()
     t0 = time.time()
     results = svc.compact_shard_batch(batches, return_arrays=True)
@@ -914,6 +1042,19 @@ def service_batch(dev, card: str) -> tuple:
     stages = dict(svc.last_stage_seconds)
     if launches["fused_resolve"] != 1 or launches["bloom_build"] != 1:
         raise AssertionError(f"service batch: launches {launches}")
+    # the JAX package's trace shape: one always-kept root and its three
+    # stage children, no cpu_fallbacks annotation
+    spans = read_spans()
+    roots = [d for d in spans if d["name"] == "tpu.compact_batch"]
+    if len(roots) != 1 or roots[0]["parent_id"] is not None or roots[0][
+            "annotations"] != {"shards": len(batches),
+                               "capacity": SERVICE_ENTRIES}:
+        raise AssertionError(f"service batch: root spans {roots}")
+    children = sorted(d["name"] for d in spans
+                      if d["parent_id"] == roots[0]["span_id"])
+    if children != ["tpu.kernel", "tpu.stage", "tpu.unpack"] \
+            or len(spans) != 4:
+        raise AssertionError(f"service batch: spans {spans}")
     # every shard must come from K2, none from the host recompute
     if svc.last_host_recomputes:
         raise AssertionError(f"service batch: {svc.last_host_recomputes} "
@@ -945,14 +1086,17 @@ def service_batch(dev, card: str) -> tuple:
             "launches": launches, "seconds": seconds,
             "entries_per_s": len(batches) * SERVICE_ENTRIES / seconds,
             "stage_seconds": stages,
+            "spans": {d["name"]: d["duration_ms"] for d in spans},
             "numpy_reference_s": time.time() - t0, "max_abs_err": 0}, launches
 
 
 class _StubDB:
-    """The four methods compact_dbs_batched calls on a DB (the JAX
-    package's storage/engine.py:1784-1950: plan_full_compaction,
-    allocate_sst, install_full_compaction, abort_full_compaction) over the
-    port's SST reader, for a shard whose runs are planar files on disk."""
+    """The methods compact_dbs_batched calls on a DB (the JAX package's
+    storage/engine.py:1784-1950: plan_full_compaction, allocate_sst,
+    install_full_compaction, abort_full_compaction) over the port's SST
+    reader, for a shard whose runs are planar files on disk; and a
+    ``compact_range`` that raises, so a BatchCompactor's per-DB fallback
+    cannot pass for the batched path."""
 
     def __init__(self, root: str, runs: list, options):
         self.options = options
@@ -989,21 +1133,19 @@ class _StubDB:
         self._close(plan)
         self.aborted = True
 
+    def compact_range(self):
+        raise AssertionError(f"{self._root}: the per-DB fallback was taken")
 
-def service_dbs(dev, work_dir: str, card: str) -> tuple:
-    """compact_dbs_batched over 12 stub DBs, each 4 planar SST runs of 2^18
-    counter entries (one shard at MAX_BATCHED_DB_ENTRIES): the stream path
-    runs a group of 8 and a group of 4 padded to 8, K2 twice. Every output
-    file must equal the numpy-resolved sink's byte for byte."""
+
+def stub_db_inputs(work_dir: str) -> tuple:
+    """12 stub DBs' inputs, each 4 planar SST runs of 2^18 counter entries
+    (one shard at MAX_BATCHED_DB_ENTRIES), and the files the numpy-resolved
+    sink writes from them: ({name: (root, input paths)}, {name: reference
+    files}, {name: entries out}, DB options, seconds)."""
     import os
     from types import SimpleNamespace
 
-    import torch
-
-    from rocksplicator_tpu_torch.gpu.compaction_service import (
-        GpuCompactionService, compact_dbs_batched)
     from rocksplicator_tpu_torch.gpu.format import planar_stride
-    from rocksplicator_tpu_torch.ops import _build
     from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
     from rocksplicator_tpu_torch.storage.sst import COMPRESSION_ZLIB
 
@@ -1013,21 +1155,62 @@ def service_dbs(dev, work_dir: str, card: str) -> tuple:
         block_bytes=block_bytes, compression=COMPRESSION_ZLIB,
         bits_per_key=10)
     t0 = time.time()
-    dbs, want, counts = [], {}, {}
+    inputs, want, counts = {}, {}, {}
     for s in range(DBS_SHARDS):
         root = os.path.join(work_dir, f"db{s}")
-        os.makedirs(os.path.join(root, "out"))
+        os.makedirs(root)
         runs = counter_runs(4, DBS_RUN_ENTRIES, 4 * DBS_RUN_ENTRIES,
                             seed=500 + s)
-        inputs = _write_runs(runs, root, "run",
-                             block_bytes // planar_stride(16, 8))
+        inputs[f"db{s}"] = (root, _write_runs(
+            runs, root, "run", block_bytes // planar_stride(16, 8)))
         want[f"db{s}"], counts[f"db{s}"] = _numpy_files(
             _concat_lanes(runs), True, root, "ref", target, block_bytes)
-        dbs.append((f"db{s}", _StubDB(os.path.join(root, "out"), inputs,
-                                      options)))
-    prepare_s = time.time() - t0
+    return inputs, want, counts, options, time.time() - t0
+
+
+def _stub_dbs(inputs: dict, options, tag: str) -> list:
+    """Fresh stub DBs over ``inputs``, writing into ``<root>/<tag>``."""
+    import os
+
+    dbs = []
+    for name, (root, runs) in inputs.items():
+        os.makedirs(os.path.join(root, tag))
+        dbs.append((name, _StubDB(os.path.join(root, tag), runs, options)))
+    return dbs
+
+
+def _check_db_files(dbs: list, want: dict, what: str) -> int:
+    """Every DB's installed files equal its reference files; the count."""
+    import os
+
+    files = 0
+    for name, db in dbs:
+        if db.files is None:
+            raise AssertionError(f"{what} {name}: nothing installed")
+        got = [os.path.join(db._root, f) for f in db.files]
+        _same_files(got, want[name], f"{what} {name}")
+        files += len(got)
+    return files
+
+
+def service_dbs(dev, prepared: tuple, card: str) -> tuple:
+    """compact_dbs_batched over the 12 stub DBs of ``stub_db_inputs``: the
+    stream path runs a group of 8 and a group of 4 padded to 8, K2 twice.
+    Every output file must equal the numpy-resolved sink's byte for byte;
+    the port's trace holds one admin.compact_stage span, and one
+    admin.compact_install span for the one (merge kind, tombstones) group
+    of DBs."""
+    import torch
+
+    from rocksplicator_tpu_torch.gpu.compaction_service import (
+        GpuCompactionService, compact_dbs_batched)
+    from rocksplicator_tpu_torch.ops import _build
+
+    inputs, want, counts, options, prepare_s = prepared
+    dbs = _stub_dbs(inputs, options, "out")
     _sort_flag(SEAM_FLAGS["fused"])
     torch.cuda.synchronize()
+    reset_observability()
     _build.reset_launches()
     t0 = time.time()
     handled, remaining = compact_dbs_batched(dbs, group_size=BENCH_SHARDS,
@@ -1038,24 +1221,112 @@ def service_dbs(dev, work_dir: str, card: str) -> tuple:
     if sorted(handled) != sorted(want) or remaining:
         raise AssertionError(f"service dbs: handled {handled}, remaining "
                              f"{[n for n, _ in remaining]}")
-    files = 0
-    for name, db in dbs:
-        got = [os.path.join(db._root, f) for f in db.files]
-        _same_files(got, want[name], f"service dbs {name}")
-        files += len(got)
+    files = _check_db_files(dbs, want, "service dbs")
     if launches["fused_resolve"] != 2 or launches["bloom_build"] != 2 + files:
         raise AssertionError(f"service dbs: launches {launches}")
     recomputes = GpuCompactionService.instance(dev).last_host_recomputes
     if recomputes:
         raise AssertionError(f"service dbs: {recomputes} shards recomputed "
                              f"on the host")
+    spans = {}
+    for d in read_spans():
+        spans.setdefault(d["name"], []).append(d["annotations"])
+    want_spans = {"admin.compact_stage": [{"shards": len(dbs)}],
+                  "admin.compact_install": [{"shards": len(dbs)}],
+                  "tpu.compact_stream": [{"shards": len(dbs),
+                                          "group_size": BENCH_SHARDS}]}
+    if spans != want_spans:
+        raise AssertionError(f"service dbs: spans {spans}")
     return {"card": card, "dbs": len(dbs), "runs_per_db": 4,
             "entries_per_db": 4 * DBS_RUN_ENTRIES, "groups": [8, 4],
             "entries_out": sum(counts.values()), "files": files,
             "identical_files": files, "launches": launches,
-            "seconds": seconds,
+            "seconds": seconds, "spans": spans,
             "entries_per_s": len(dbs) * 4 * DBS_RUN_ENTRIES / seconds,
             "prepare_s": prepare_s}, launches
+
+
+def batch_compactor(dev, prepared: tuple, card: str) -> tuple:
+    """The post-ingest caller: the same 12 stub DBs submitted to the port's
+    BatchCompactor from 12 threads at once. The leader drains the queue in
+    batches; each batch is one compact_dbs_batched call, a batch of more
+    than 8 DBs two launch groups. K2 is called once a launch group and K3
+    once a group plus once a file; every file equals the numpy-resolved
+    sink's; no DB takes the per-DB fallback (the stubs' compact_range
+    raises) and the port's admin logger records no error."""
+    import logging
+    import threading
+
+    import torch
+
+    from rocksplicator_tpu_torch.admin import BatchCompactor
+    from rocksplicator_tpu_torch.ops import _build
+
+    inputs, want, counts, options, _prepare_s = prepared
+    dbs = _stub_dbs(inputs, options, "bc")
+    errors = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            errors.append(self.format(record))
+
+    handler = Errors(logging.ERROR)
+    admin_log = logging.getLogger("rocksplicator_tpu_torch.admin")
+    admin_log.addHandler(handler)
+    compactor = BatchCompactor(device=dev)
+    start = threading.Barrier(len(dbs))
+    rode, failed = {}, {}
+
+    def submit(name, db):
+        start.wait()
+        try:
+            rode[name] = compactor.compact(name, db)
+        except Exception as exc:  # the phase fails on it below
+            failed[name] = repr(exc)
+
+    _sort_flag(SEAM_FLAGS["fused"])
+    threads = [threading.Thread(target=submit, args=item) for item in dbs]
+    try:
+        torch.cuda.synchronize()
+        reset_observability()
+        _build.reset_launches()
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        compactor.close()
+        admin_log.removeHandler(handler)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("batch compactor: a submitter still waits")
+    if failed or errors or sorted(rode) != sorted(want):
+        raise AssertionError(f"batch compactor: failed {failed}, admin "
+                             f"errors {errors}, compacted {sorted(rode)}")
+    sizes = list(compactor.batch_sizes)
+    if sum(sizes) != len(dbs) or compactor.dispatch_count != len(sizes):
+        raise AssertionError(f"batch compactor: batches {sizes}, dispatches "
+                             f"{compactor.dispatch_count}")
+    files = _check_db_files(dbs, want, "batch compactor")
+    groups = sum(-(-b // BENCH_SHARDS) for b in sizes)
+    if launches["fused_resolve"] != groups \
+            or launches["bloom_build"] != groups + files:
+        raise AssertionError(f"batch compactor: launches {launches}, "
+                             f"batches {sizes}, {files} files")
+    dispatches = [d["annotations"] for d in read_spans()
+                  if d["name"] == "admin.compact_dispatch"]
+    if sorted(a["shards"] for a in dispatches) != sorted(sizes):
+        raise AssertionError(f"batch compactor: dispatch spans {dispatches}")
+    return {"card": card, "dbs": len(dbs), "threads": len(dbs),
+            "dispatch_count": compactor.dispatch_count,
+            "batch_sizes": sizes, "launch_groups": groups, "files": files,
+            "identical_files": files, "launches": launches,
+            "entries_out": sum(counts.values()), "seconds": seconds,
+            "entries_per_s": len(dbs) * 4 * DBS_RUN_ENTRIES / seconds,
+            "per_db_fallbacks": 0}, launches
 
 
 def main() -> int:
@@ -1537,8 +1808,24 @@ def main() -> int:
         # ---- 4c. the batched service, each path counted on its own ----
         svc_batch, svc_batch_launches = service_batch(dev, card)
         emit({"phase": "service_batch", **svc_batch})
-        svc_dbs, svc_dbs_launches = service_dbs(dev, work_dir, card)
+        prepared = stub_db_inputs(work_dir)
+        svc_dbs, svc_dbs_launches = service_dbs(dev, prepared, card)
         emit({"phase": "service_dbs", **svc_dbs})
+        # ---- 4d. the post-ingest BatchCompactor over the same DBs ------
+        compactor, compactor_launches = batch_compactor(dev, prepared, card)
+        emit({"phase": "batch_compactor", **compactor})
+        cost = instrumentation_cost()
+        per_stream = stream["backends"]["fused"]["counters"]
+        emit({"phase": "instrumented_seconds", "card": card,
+              "engine_seam_stream_fused_s":
+                  stream["backends"]["fused"]["seconds"],
+              "service_dbs_s": svc_dbs["seconds"],
+              "batch_compactor_s": compactor["seconds"], **cost,
+              # an fp.hit and a Stats.incr per chunk and per refill
+              "instrumentation_us_per_stream": (
+                  per_stream["stream_chunks"] + per_stream["stream_refills"])
+              * (cost["fp_hit_us"] + cost["stats_incr_us"])
+              + cost["child_span_us"]})
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     _sort_flag(None)
@@ -1554,6 +1841,7 @@ def main() -> int:
         "engine_seam_stream_budget": budget_launches,
         "service_batch": svc_batch_launches,
         "service_dbs": svc_dbs_launches,
+        "batch_compactor": compactor_launches,
     }
     launches_by_path = {p: {k: c[k] for k in sources}
                         for p, c in launches_by_path.items()}

@@ -24,8 +24,12 @@ A shard the kernel flags (``needs_cpu_fallback``: a key with 2^16 operands
 or more) is recomputed on the host, as the JAX package does by design, and
 counted in ``last_host_recomputes``; nothing else leaves the card, and a
 kernel that fails raises. CPU tensors (``device="cpu"``) run every
-kernel's plain version. The JAX package's spans, failpoints and Stats
-counters around these calls have no counterpart in the port yet.
+kernel's plain version. The spans (``tpu.compact_batch`` with its
+``tpu.stage``, ``tpu.kernel`` and ``tpu.unpack`` children,
+``tpu.compact_stream``, ``admin.compact_stage``, ``admin.compact_install``),
+the failpoint ``compact.subcompact`` and the counter
+``compaction.subcompactions`` are the JAX package's, at its sites, in the
+port's own collector, registry and Stats.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability.span import start_span
 from ..ops.bloom import bloom_build, bloom_build_batched
 from ..ops.compaction_kernel import (MergeKind, deployment_sort_backend,
                                      merge_resolve_batched)
@@ -48,6 +53,8 @@ from ..ops.kv_format import (UnsupportedBatch, fast_flags, unpack_entries)
 from ..ops.lanes import u32_numpy, u32_tensor
 from ..storage.bloom import BloomFilter, hash_words, num_words_for
 from ..storage.merge import is_uint64_add
+from ..testing import failpoints as fp
+from ..utils.stats import Stats
 from .backend import GpuCompactionBackend, _merge_kind, cpu_merge_resolve
 from .chunked import FIELDS, INPUT_FIELDS, launch_rows, run_kernel_arrays
 
@@ -227,18 +234,29 @@ class GpuCompactionService:
         if not batches:
             return []
         t0 = time.perf_counter()
-        _cap, rows, num_words, static = self._shape(batches)
-        stacked = self._stage(batches, rows, len(batches))
-        t1 = time.perf_counter()
-        lanes, ready = self._upload(stacked)
-        out = self._launch(lanes, ready, merge_kind, drop_tombstones,
-                           num_words, static)
-        pending = self._readback(out)
-        t2 = time.perf_counter()
-        host = self._host(pending)
-        t3 = time.perf_counter()
-        results = self._unpack(0, host, batches, merge_kind, drop_tombstones,
-                               num_words, return_arrays)
+        capacity, rows, num_words, static = self._shape(batches)
+        # the job's trace, as in the JAX package: host stack + upload, then
+        # launches + readback (the wait for the card lands in tpu.kernel),
+        # then the per-shard unpack
+        with start_span("tpu.compact_batch", always=True,
+                        shards=len(batches), capacity=capacity) as jsp:
+            with start_span("tpu.stage"):
+                stacked = self._stage(batches, rows, len(batches))
+                t1 = time.perf_counter()
+                lanes, ready = self._upload(stacked)
+            with start_span("tpu.kernel"):
+                out = self._launch(lanes, ready, merge_kind, drop_tombstones,
+                                   num_words, static)
+                pending = self._readback(out)
+                t2 = time.perf_counter()
+                host = self._host(pending)
+            t3 = time.perf_counter()
+            with start_span("tpu.unpack"):
+                results = self._unpack(0, host, batches, merge_kind,
+                                       drop_tombstones, num_words,
+                                       return_arrays)
+            if self.last_host_recomputes:
+                jsp.annotate(cpu_fallbacks=self.last_host_recomputes)
         self.last_stage_seconds = {
             # stacking and padding on the host
             "stage": t1 - t0,
@@ -267,6 +285,14 @@ class GpuCompactionService:
         self.last_host_recomputes = 0
         if not batches:
             return []
+        with start_span("tpu.compact_stream", always=True,
+                        shards=len(batches), group_size=group_size):
+            return self._compact_shard_stream(
+                batches, merge_kind, drop_tombstones, group_size,
+                return_arrays)
+
+    def _compact_shard_stream(self, batches, merge_kind, drop_tombstones,
+                              group_size, return_arrays) -> List[dict]:
         _cap, rows, num_words, static = self._shape(batches)
         groups = list(range(0, len(batches), group_size))
 
@@ -329,39 +355,52 @@ class GpuCompactionService:
         dev = self.device
         sizes = [sum(p["key_len"].shape[0] for p in pieces)
                  for pieces in shards]
-        rows = launch_rows(_next_pow2(max(sizes)))
+        capacity = _next_pow2(max(sizes))
+        rows = launch_rows(capacity)
         static = _pooled_flags([fast_flags(
             *(np.concatenate([p[f] for p in pieces])
               for f in ("key_len", "seq_hi")), np.ones(n, dtype=bool))
             for pieces, n in zip(shards, sizes)])
-        lanes = {}
-        for f in INPUT_FIELDS:
-            lane = torch.zeros((len(shards), rows) + shards[0][0][f].shape[1:],
-                               dtype=torch.int32, device=dev)
-            for s, pieces in enumerate(shards):
-                at = 0
-                for p in pieces:
-                    n = p[f].shape[0]
-                    lane[s, at:at + n].copy_(torch.from_numpy(
-                        np.ascontiguousarray(p[f]).view(np.int32)))
-                    at += n
-            lanes[f] = lane
-        lanes["valid"] = (torch.arange(rows, device=dev)[None, :]
-                          < torch.tensor(sizes, device=dev)[:, None])
-        out = self._launch(lanes, None, merge_kind, drop_tombstones, None,
-                           static)
-        counts, flagged = torch.stack([
-            out["count"].to(torch.int64),
-            out["needs_cpu_fallback"].to(torch.int64)]).tolist()
-        kept = []
-        for s, pieces in enumerate(shards):
-            if flagged[s]:
-                host, counts[s] = self._host_lanes(_LaneBatch({
-                    f: np.concatenate([p[f] for p in pieces])
-                    for f in FIELDS}), merge_kind, drop_tombstones)
-                kept.append({f: u32_tensor(host[f], dev) for f in FIELDS})
-            else:
-                kept.append({f: out[f][s, :counts[s]] for f in FIELDS})
+        # the trace of the JAX package's batched launch, which its
+        # subcompaction route takes (compact_shard_batch)
+        with start_span("tpu.compact_batch", always=True,
+                        shards=len(shards), capacity=capacity) as jsp:
+            with start_span("tpu.stage"):
+                lanes = {}
+                for f in INPUT_FIELDS:
+                    lane = torch.zeros(
+                        (len(shards), rows) + shards[0][0][f].shape[1:],
+                        dtype=torch.int32, device=dev)
+                    for s, pieces in enumerate(shards):
+                        at = 0
+                        for p in pieces:
+                            n = p[f].shape[0]
+                            lane[s, at:at + n].copy_(torch.from_numpy(
+                                np.ascontiguousarray(p[f]).view(np.int32)))
+                            at += n
+                    lanes[f] = lane
+                lanes["valid"] = (torch.arange(rows, device=dev)[None, :]
+                                  < torch.tensor(sizes, device=dev)[:, None])
+            with start_span("tpu.kernel"):
+                out = self._launch(lanes, None, merge_kind, drop_tombstones,
+                                   None, static)
+                counts, flagged = torch.stack([
+                    out["count"].to(torch.int64),
+                    out["needs_cpu_fallback"].to(torch.int64)]).tolist()
+            with start_span("tpu.unpack"):
+                kept = []
+                for s, pieces in enumerate(shards):
+                    if flagged[s]:
+                        host, counts[s] = self._host_lanes(_LaneBatch({
+                            f: np.concatenate([p[f] for p in pieces])
+                            for f in FIELDS}), merge_kind, drop_tombstones)
+                        kept.append({f: u32_tensor(host[f], dev)
+                                     for f in FIELDS})
+                    else:
+                        kept.append({f: out[f][s, :counts[s]]
+                                     for f in FIELDS})
+            if self.last_host_recomputes:
+                jsp.annotate(cpu_fallbacks=self.last_host_recomputes)
         return ({f: torch.cat([k[f] for k in kept]) for f in FIELDS},
                 int(sum(counts)))
 
@@ -463,6 +502,8 @@ def resolve_slices_batched(
     for i, lanes in enumerate(slice_lanes):
         if lanes["key_len"].shape[0] == 0:
             continue
+        fp.hit("compact.subcompact")
+        Stats.get().incr("compaction.subcompactions")
         batches.append(_LaneBatch(lanes))
         index.append(i)
     if batches:
@@ -487,8 +528,13 @@ def resolve_slices_on_device(
     device as every slice's kept rows concatenated in slice order — the
     unsliced launch's output — with their count. Empty slices are
     skipped."""
-    shards = [pieces for pieces in slices
-              if sum(p["key_len"].shape[0] for p in pieces)]
+    shards = []
+    for pieces in slices:
+        if not sum(p["key_len"].shape[0] for p in pieces):
+            continue
+        fp.hit("compact.subcompact")
+        Stats.get().incr("compaction.subcompactions")
+        shards.append(pieces)
     if not shards:
         return {}, 0
     return GpuCompactionService.instance(device).compact_on_device(
@@ -643,9 +689,12 @@ def compact_dbs_batched(dbs, group_size: int = 8, pool=None, device=None):
 
     Returns ``(handled, remaining)``: the DB names compacted here, and the
     (name, db) pairs the caller must compact per DB (compact_range). A
-    launch or a bloom kernel that fails raises, after every plan still
-    held is released; a host failure to write or install a DB's files
-    declines that DB to ``remaining``.
+    host failure to write or install a DB's files declines that DB to
+    ``remaining``. A launch or a bloom kernel that fails raises, after
+    every plan still held is released; the exception then carries
+    ``remaining`` (the DBs declined so far) and ``unfinished`` (the
+    (name, db) pairs whose group failed or never launched), so the
+    caller knows which DBs the batch did compact.
     """
     dev = resolve_device(device)
     dbs = list(dbs)
@@ -658,9 +707,9 @@ def compact_dbs_batched(dbs, group_size: int = 8, pool=None, device=None):
     pending: Dict[int, tuple] = {}
     pending_lock = threading.Lock()
 
-    def _track(db, plan):
+    def _track(name, db, plan):
         with pending_lock:
-            pending[id(plan)] = (db, plan)
+            pending[id(plan)] = (name, db, plan)
 
     def _untrack(plan):
         with pending_lock:
@@ -694,7 +743,7 @@ def compact_dbs_batched(dbs, group_size: int = 8, pool=None, device=None):
             return ("remaining", name, db, None)
         if plan is None:
             return ("handled", name, db, None)  # nothing to compact
-        _track(db, plan)
+        _track(name, db, plan)
         try:
             lanes = _db_lanes(plan)
         except BaseException:
@@ -722,11 +771,15 @@ def compact_dbs_batched(dbs, group_size: int = 8, pool=None, device=None):
         return ("grouped", name, db, (key, plan, _LaneBatch(lanes)))
 
     def _install(args):
-        """Build the shard's file blooms (K3: a failure raises), then
-        write and install its files on the host; a host failure declines
-        the DB to the per-DB fallback with its plan released."""
+        """Build the shard's file blooms (K3: a failure is returned, plan
+        still held, for the group to raise), then write and install its
+        files on the host; a host failure declines the DB to the per-DB
+        fallback with its plan released."""
         name, db, plan, res = args
-        layout = _file_blooms(db, res, dev)
+        try:
+            layout = _file_blooms(db, res, dev)
+        except Exception as exc:
+            return ("failed", name, db, exc)
 
         def install(**outputs):
             _untrack(plan)  # install consumes the plan either way
@@ -734,7 +787,7 @@ def compact_dbs_batched(dbs, group_size: int = 8, pool=None, device=None):
 
         try:
             _install_arrays(db, res, layout, install)
-            return ("handled", name, db)
+            return ("handled", name, db, None)
         except Exception:
             log.exception("batched compaction install failed for %s; "
                           "will re-compact per-db", name)
@@ -742,10 +795,11 @@ def compact_dbs_batched(dbs, group_size: int = 8, pool=None, device=None):
                 held = pending.pop(id(plan), None) is not None
             if held:
                 db.abort_full_compaction(plan)
-            return ("remaining", name, db)
+            return ("remaining", name, db, None)
 
     try:
-        staged = _pmap(_stage, dbs)
+        with start_span("admin.compact_stage", shards=len(dbs)):
+            staged = _pmap(_stage, dbs)
         for verdict, name, db, payload in staged:
             if verdict == "handled":
                 handled.append(name)
@@ -777,17 +831,29 @@ def compact_dbs_batched(dbs, group_size: int = 8, pool=None, device=None):
                     return_arrays=True)
             installs = [(name, db, plan, res) for (name, db, plan, _b), res
                         in zip(items, results)]
-            for verdict, name, db in _pmap(_install, installs):
+            with start_span("admin.compact_install", shards=len(installs)):
+                installed = _pmap(_install, installs)
+            failed = None
+            for verdict, name, db, exc in installed:
                 if verdict == "handled":
                     handled.append(name)
-                else:
+                elif verdict == "remaining":
                     remaining.append((name, db))
+                elif failed is None:
+                    failed = exc
+            if failed is not None:
+                raise failed
         return handled, remaining
+    except Exception as exc:
+        exc.remaining = list(remaining)
+        with pending_lock:
+            exc.unfinished = [(name, db) for name, db, _p in pending.values()]
+        raise
     finally:
         with pending_lock:
             leaked = list(pending.values())
             pending.clear()
-        for db, plan in leaked:
+        for _name, db, plan in leaked:
             try:
                 db.abort_full_compaction(plan)
             except Exception:

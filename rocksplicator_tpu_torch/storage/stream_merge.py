@@ -27,10 +27,11 @@ abort), and a ``MemTracker`` records the compaction's high-water mark.
 Every output is swept when the pipeline raises or declines, so nothing is
 installed unless the whole merge finishes.
 
-The JAX package's span (``compact.stream``), failpoints
-(``compact.stream.chunk``, ``compact.stream.refill``) and Stats counters
-(``compaction.stream_chunks``, ``stream_merges``, ``stream_refills``,
-``stream_declines``) have no counterpart in the port yet.
+The span ``compact.stream``, the failpoints ``compact.stream.chunk`` and
+``compact.stream.refill`` and the Stats counters
+``compaction.stream_chunks``, ``stream_merges``, ``stream_refills`` and
+``stream_declines`` are the JAX package's, at its sites, in the port's own
+collector, registry and Stats.
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..observability.span import start_span
 from ..ops.kv_format import LANE_FIELDS as FIELDS
 from ..ops.kv_format import UnsupportedBatch
+from ..testing import failpoints as fp
+from ..utils.stats import Stats
 
 _PUT, _DELETE, _MERGE = 1, 2, 3
 
@@ -254,6 +258,8 @@ class _RunCursor:
         (whole blocks; only called on an EMPTY cursor). Returns the byte
         count of the RETIRED window: the pipeline releases it once the
         in-flight chunk holding views of it has been collected."""
+        fp.hit("compact.stream.refill")
+        Stats.get().incr("compaction.stream_refills")
         parts: List[dict] = []
         rows = 0
         while self._next_block < self._src.num_blocks \
@@ -598,6 +604,7 @@ def maybe_stream_merge(
             resolver or CpuChunkResolver(),
             {} if report is None else report)
     except (UnsupportedBatch, _StreamDecline) as e:
+        Stats.get().incr("compaction.stream_declines")
         logging.getLogger(__name__).info(
             "streaming merge declined (%s); using the in-RAM route", e)
         return None
@@ -641,93 +648,98 @@ def _run_pipeline(
         pending, pending_release = None, 0
 
     try:
-        while True:
-            t0 = time.perf_counter()
-            # window sizing from the ACTUAL headroom under the ceiling:
-            # live bytes already count the sink's file buffer, the
-            # in-flight chunk and the windows the double buffer pins, so
-            # refills shrink as any of them grow (degrade, never abort: the
-            # floor is one block). Stall pressure shrinks the chunk too.
-            eff_chunk = adaptive_chunk_entries(chunk_target, io_budget)
-            headroom = budget_bytes - tracker.process_live()
-            # /5: a window generation coexists with its chunk concatenation
-            # (same size), the resolved chunk, the sink's file buffer and
-            # (pipelined) the previous generation the double buffer pins,
-            # plus block rounding on every refill
-            w_budget = (headroom // 5) // max(1, nruns * row_bytes)
-            w = max(MIN_WINDOW_ENTRIES,
-                    min(eff_chunk // max(1, nruns), w_budget))
-            for c in cursors:
-                if c.empty and not c.file_done:
-                    retired_bytes += c.refill(w)
-            cut: Optional[bytes] = None
-            for c in cursors:
-                if not c.empty and not c.file_done:
-                    k = c.frontier_key()
-                    if cut is None or k < cut:
-                        cut = k
-            parts: List[dict] = []
-            if carry_key is not None and (cut is None or carry_key < cut):
-                parts.extend(carry_parts)
-                retired_bytes += _lanes_nbytes_list(carry_parts)
-                carry_parts, carry_key = [], None
-            for c in cursors:
-                sl = c.take_lt(cut)
-                if sl is not None:
-                    parts.append(sl)
-            if not parts:
-                stages["window_decode"] += time.perf_counter() - t0
-                if cut is None:
-                    break  # every run exhausted, no carry left
-                # stall: the cut key's group spans the bounding run's
-                # window end — carry its loaded rows raw and refill before
-                # cutting again
+        with start_span("compact.stream", runs=nruns, entries=total,
+                        budget_bytes=budget_bytes):
+            while True:
+                t0 = time.perf_counter()
+                # window sizing from the ACTUAL headroom under the ceiling:
+                # live bytes already count the sink's file buffer, the
+                # in-flight chunk and the windows the double buffer pins, so
+                # refills shrink as any of them grow (degrade, never abort: the
+                # floor is one block). Stall pressure shrinks the chunk too.
+                eff_chunk = adaptive_chunk_entries(chunk_target, io_budget)
+                headroom = budget_bytes - tracker.process_live()
+                # /5: a window generation coexists with its chunk concatenation
+                # (same size), the resolved chunk, the sink's file buffer and
+                # (pipelined) the previous generation the double buffer pins,
+                # plus block rounding on every refill
+                w_budget = (headroom // 5) // max(1, nruns * row_bytes)
+                w = max(MIN_WINDOW_ENTRIES,
+                        min(eff_chunk // max(1, nruns), w_budget))
                 for c in cursors:
-                    sl = c.take_eq(cut)
+                    if c.empty and not c.file_done:
+                        retired_bytes += c.refill(w)
+                cut: Optional[bytes] = None
+                for c in cursors:
+                    if not c.empty and not c.file_done:
+                        k = c.frontier_key()
+                        if cut is None or k < cut:
+                            cut = k
+                parts: List[dict] = []
+                if carry_key is not None and (cut is None or carry_key < cut):
+                    parts.extend(carry_parts)
+                    retired_bytes += _lanes_nbytes_list(carry_parts)
+                    carry_parts, carry_key = [], None
+                for c in cursors:
+                    sl = c.take_lt(cut)
                     if sl is not None:
-                        carry_parts.append(sl)
-                        tracker.add(_lanes_nbytes(sl))
-                carry_key = cut
-                continue
-            lanes = {
-                f: np.concatenate([p[f] for p in parts])
-                if len(parts) > 1 else parts[0][f]
-                for f in resolver.fields
-            }
-            # the multi-part concatenation is a real second copy of the
-            # consumed window rows; it lives through submit() and is
-            # accounted for that span
-            concat_bytes = _lanes_nbytes(lanes) if len(parts) > 1 else 0
-            tracker.add(concat_bytes)
-            chunk_n = int(lanes["key_len"].shape[0])
-            _check_chunk_semantics(lanes, merge_op)
-            stages["window_decode"] += time.perf_counter() - t0
+                        parts.append(sl)
+                if not parts:
+                    stages["window_decode"] += time.perf_counter() - t0
+                    if cut is None:
+                        break  # every run exhausted, no carry left
+                    # stall: the cut key's group spans the bounding run's
+                    # window end — carry its loaded rows raw and refill
+                    # before cutting again
+                    for c in cursors:
+                        sl = c.take_eq(cut)
+                        if sl is not None:
+                            carry_parts.append(sl)
+                            tracker.add(_lanes_nbytes(sl))
+                    carry_key = cut
+                    continue
+                fp.hit("compact.stream.chunk")
+                Stats.get().incr("compaction.stream_chunks")
+                lanes = {
+                    f: np.concatenate([p[f] for p in parts])
+                    if len(parts) > 1 else parts[0][f]
+                    for f in resolver.fields
+                }
+                # the multi-part concatenation is a real second copy of the
+                # consumed window rows; it lives through submit() and is
+                # accounted for that span
+                concat_bytes = _lanes_nbytes(lanes) if len(parts) > 1 else 0
+                tracker.add(concat_bytes)
+                chunk_n = int(lanes["key_len"].shape[0])
+                _check_chunk_semantics(lanes, merge_op)
+                stages["window_decode"] += time.perf_counter() - t0
+                if pending is not None:
+                    collect_pending()
+                t0 = time.perf_counter()
+                pending = resolver.submit(
+                    parts, lanes, chunk_n, vw, merge_op, drop_tombstones)
+                stages["submit"] += time.perf_counter() - t0
+                stages["chunks"] += 1
+                # both resolvers consume the concatenation inside submit()
+                # (the CPU one resolves it, the card's uploads it): drop it
+                # WITH its accounting, so freed bytes and tracker agree before
+                # the next window sizing
+                tracker.sub(concat_bytes)
+                del parts, lanes
+                # windows retired before this submit stay pinned by the
+                # chunk's views until it is collected
+                pending_release, retired_bytes = retired_bytes, 0
+                if not getattr(resolver, "pipelined", True):
+                    # synchronous resolver: nothing overlaps, release the
+                    # consumed windows before the next refill
+                    collect_pending()
             if pending is not None:
                 collect_pending()
             t0 = time.perf_counter()
-            pending = resolver.submit(
-                parts, lanes, chunk_n, vw, merge_op, drop_tombstones)
-            stages["submit"] += time.perf_counter() - t0
-            stages["chunks"] += 1
-            # both resolvers consume the concatenation inside submit()
-            # (the CPU one resolves it, the card's uploads it): drop it
-            # WITH its accounting, so freed bytes and tracker agree before
-            # the next window sizing
-            tracker.sub(concat_bytes)
-            del parts, lanes
-            # windows retired before this submit stay pinned by the
-            # chunk's views until it is collected
-            pending_release, retired_bytes = retired_bytes, 0
-            if not getattr(resolver, "pipelined", True):
-                # synchronous resolver: nothing overlaps, release the
-                # consumed windows before the next refill
-                collect_pending()
-        if pending is not None:
-            collect_pending()
-        t0 = time.perf_counter()
-        outputs = sink.finish()
-        stages["sink"] += time.perf_counter() - t0
-        return outputs
+            outputs = sink.finish()
+            stages["sink"] += time.perf_counter() - t0
+            Stats.get().incr("compaction.stream_merges")
+            return outputs
     except BaseException:
         sink.abandon()
         raise

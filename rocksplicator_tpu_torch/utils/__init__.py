@@ -1,1 +1,2 @@
-"""Host helpers (copies of ``rocksplicator_tpu/utils``)."""
+"""Host helpers (copies of ``rocksplicator_tpu/utils``: checksums, flags,
+Stats)."""

@@ -5,7 +5,9 @@ plain PyTorch path on the CPU) against the JAX package's
 ``resolve_slices_batched``, and the same writes into two sets of reference
 DBs compacted by ``compact_dbs_batched``. Tolerance 0: entries, lanes,
 counts and bloom words are compared element for element, files byte for
-byte."""
+byte. Each package's spans, Stats counters and failpoints (its own
+singletons) are held against the other's on the same jobs: the same span
+names, parents and annotations, the same counter values, the same trips."""
 
 import os
 import struct
@@ -13,7 +15,17 @@ import struct
 import numpy as np
 import pytest
 
+import rocksplicator_tpu
+import rocksplicator_tpu.observability.collector as jax_collector
+import rocksplicator_tpu.observability.span as jax_span
+import rocksplicator_tpu.testing.failpoints as jax_fp
 import rocksplicator_tpu.tpu.compaction_service as jax_service
+import rocksplicator_tpu.utils.stats as jax_stats
+import rocksplicator_tpu_torch
+import rocksplicator_tpu_torch.observability.collector as port_collector
+import rocksplicator_tpu_torch.observability.span as port_span
+import rocksplicator_tpu_torch.testing.failpoints as port_fp
+import rocksplicator_tpu_torch.utils.stats as port_stats
 from rocksplicator_tpu.ops.compaction_kernel import MergeKind as JaxKind
 from rocksplicator_tpu.ops.kv_format import pack_entries as jax_pack
 from rocksplicator_tpu.storage import DB, DBOptions, UInt64AddOperator
@@ -26,6 +38,7 @@ from rocksplicator_tpu_torch.gpu.compaction_service import (
 from rocksplicator_tpu_torch.ops.compaction_kernel import MergeKind
 from rocksplicator_tpu_torch.ops.kv_format import pack_entries
 from rocksplicator_tpu_torch.ops.lanes import u32_numpy
+from torch_parity import counters, reset_observability, span_shape
 
 pack64 = struct.Struct("<q").pack
 LANES = ("key_words_be", "key_words_le", "key_len", "seq_hi", "seq_lo",
@@ -42,6 +55,17 @@ def _reference_lax():
         yield
     finally:
         FLAGS.set("sort_backend", old)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_observability():
+    """tests/conftest.py resets only the JAX package's singletons: both
+    packages' Stats, collectors (every root kept) and failpoints start
+    empty here, and no site stays armed after a test."""
+    reset_observability(rocksplicator_tpu, rocksplicator_tpu_torch)
+    yield
+    jax_fp.reset_for_test()
+    port_fp.reset_for_test()
 
 
 def _entries(seed, n, *, uniform, uint64_add, hot=0):
@@ -142,11 +166,24 @@ def test_overflow_shard_is_recomputed_on_the_host(monkeypatch):
 
     monkeypatch.setattr(svc, "_cpu_recompute", spy)
     for return_arrays in (True, False):
+        reset_observability(rocksplicator_tpu, rocksplicator_tpu_torch)
         want = jax_service.TpuCompactionService().compact_shard_batch(
             jax_batches, return_arrays=return_arrays)
         got = svc.compact_shard_batch(batches, return_arrays=return_arrays)
         _assert_same(want, got, return_arrays)
         assert svc.last_host_recomputes == 1
+        # the job's trace: tpu.compact_batch with cpu_fallbacks, and its
+        # stage, kernel and unpack children, as the reference's
+        trace = span_shape(port_collector)
+        assert trace == span_shape(jax_collector)
+        assert ("tpu.compact_batch", None, (
+            ("capacity", 1 << 17), ("cpu_fallbacks", 1), ("shards", 2)),
+            "") in trace
+        assert sorted(((n, parent or "") for (n, parent, _a, _e)
+                       in trace), key=repr) == [
+            ("tpu.compact_batch", ""), ("tpu.kernel", "tpu.compact_batch"),
+            ("tpu.stage", "tpu.compact_batch"),
+            ("tpu.unpack", "tpu.compact_batch")]
     assert recomputed == [40 + (1 << 16)] * 2
     svc.compact_shard_batch(batches[:1])
     assert svc.last_host_recomputes == 0
@@ -381,3 +418,133 @@ def test_failed_kernel_reaches_the_caller(kernel, pool, tmp_path,
             executor.shutdown()
         for _name, db in dbs:
             db.close()
+
+
+# ---------------------------------------------------------------------------
+# spans, counters and failpoints against the reference's (G1)
+# ---------------------------------------------------------------------------
+
+
+def test_shard_stream_trace_matches_reference():
+    """compact_shard_stream: one tpu.compact_stream root with the shard
+    count and group size, as the reference's."""
+    shards = [_entries(40 + s, 20 + 9 * s, uniform=True, uint64_add=True)
+              for s in range(5)]
+    jax_batches, batches = _pair(shards)
+    jax_service.TpuCompactionService().compact_shard_stream(
+        jax_batches, group_size=2)
+    GpuCompactionService(device="cpu").compact_shard_stream(
+        batches, group_size=2)
+    trace = span_shape(port_collector)
+    assert trace == span_shape(jax_collector) == {
+        ("tpu.compact_stream", None, (("group_size", 2), ("shards", 5)),
+         ""): 1}
+
+
+def _slices(seed=32):
+    ents = sorted(_entries(seed, 200, uniform=True, uint64_add=True),
+                  key=lambda e: (e[0], -e[1]))
+    cuts = [0, 0, 60, 120, 120, 200]
+    return [_slice(ents[a:b]) if b > a else {
+        f: v[:0] for f, v in _slice(ents[:1]).items()}
+        for a, b in zip(cuts, cuts[1:])]
+
+
+def test_resolve_slices_counts_and_traces_as_the_reference():
+    """One compaction.subcompactions a non-empty slice, counted in each
+    package's own Stats; the batch's trace as the reference's; the
+    device-resident route counts the same slices."""
+    slices = _slices()
+    jax_service.resolve_slices_batched(slices, JaxKind.UINT64_ADD, True)
+    resolve_slices_batched(slices, MergeKind.UINT64_ADD, True, device="cpu")
+    want = counters(jax_stats, ("compaction.subcompactions",))
+    assert counters(port_stats, ("compaction.subcompactions",)) == want == {
+        "compaction.subcompactions": 3}
+    assert span_shape(port_collector) == span_shape(jax_collector)
+    reset_observability(rocksplicator_tpu_torch)
+    resolve_slices_on_device([[sl] for sl in slices], MergeKind.UINT64_ADD,
+                             True, device="cpu")
+    assert counters(port_stats, ("compaction.subcompactions",)) == want
+
+
+@pytest.mark.parametrize("route", ["batched", "on_device"])
+def test_armed_subcompact_site_fails_before_the_launch(route, monkeypatch):
+    """compact.subcompact at fail_nth:2, armed in each package's own
+    registry: the second non-empty slice raises FailpointError before any
+    launch, after one slice was counted, in both packages."""
+    slices = _slices()
+    launches = []
+
+    def no_launch(*_a, **_kw):
+        launches.append(1)
+        raise AssertionError("launched after the failpoint")
+
+    monkeypatch.setattr(service, "merge_resolve_batched", no_launch)
+    monkeypatch.setattr(jax_service.TpuCompactionService,
+                        "compact_shard_batch", no_launch)
+    jax_fp.activate("compact.subcompact", "fail_nth:2")
+    with pytest.raises(jax_fp.FailpointError) as want:
+        jax_service.resolve_slices_batched(slices, JaxKind.UINT64_ADD, True)
+    port_fp.activate("compact.subcompact", "fail_nth:2")
+    with pytest.raises(port_fp.FailpointError) as got:
+        if route == "batched":
+            resolve_slices_batched(slices, MergeKind.UINT64_ADD, True,
+                                   device="cpu")
+        else:
+            resolve_slices_on_device([[sl] for sl in slices],
+                                     MergeKind.UINT64_ADD, True,
+                                     device="cpu")
+    assert str(got.value) == str(want.value)
+    assert launches == []
+    for fp_mod, stats_mod in ((jax_fp, jax_stats), (port_fp, port_stats)):
+        assert fp_mod.trip_counts() == {"compact.subcompact": 1}
+        assert counters(stats_mod, ("compaction.subcompactions",)) == {
+            "compaction.subcompactions": 1}
+
+
+def test_compact_dbs_batched_trace_matches_reference(tmp_path):
+    """Under a pool and inside a dispatch span: admin.compact_stage for
+    the call, admin.compact_install a group, and the groups' tpu. spans
+    (a stream of three counter DBs in groups of two, a batch of one
+    no-operator DB), with the reference's parents and annotations."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    specs = {"counters0": DB_SPECS["counters0"],
+             "counters1": DB_SPECS["counters1"],
+             "counters2": DB_SPECS["counters2"], "puts": DB_SPECS["puts"]}
+    for label, fn, span_mod, kw in (
+            ("jax", jax_service.compact_dbs_batched, jax_span, {}),
+            ("gpu", compact_dbs_batched, port_span, dict(device="cpu"))):
+        dbs = []
+        for name, (op, write, _handled) in specs.items():
+            db = DB(str(tmp_path / label / name), DBOptions(
+                merge_operator=op() if op else None,
+                level0_compaction_trigger=100, memtable_bytes=1 << 30))
+            write(db)
+            dbs.append((name, db))
+        pool = ThreadPoolExecutor(2)
+        try:
+            with span_mod.start_span("admin.compact_dispatch", always=True,
+                                     shards=len(dbs), tpu=True):
+                handled, remaining = fn(dbs, group_size=2, pool=pool, **kw)
+            assert sorted(handled) == sorted(specs) and not remaining
+        finally:
+            pool.shutdown()
+            for _name, db in dbs:
+                db.close()
+    # the reference engine's own spans (flush, install) land in the
+    # reference's collector in both runs: compare the service's
+    trace = span_shape(port_collector, ("admin.", "tpu."))
+    assert trace == span_shape(jax_collector, ("admin.", "tpu."))
+    names = {}
+    for (n, parent, _a, _e), c in trace.items():
+        names[n, parent] = names.get((n, parent), 0) + c
+    assert names == {
+        ("admin.compact_dispatch", None): 1,
+        ("admin.compact_stage", "admin.compact_dispatch"): 1,
+        ("tpu.compact_stream", "admin.compact_dispatch"): 1,
+        ("tpu.compact_batch", "admin.compact_dispatch"): 1,
+        ("tpu.stage", "tpu.compact_batch"): 1,
+        ("tpu.kernel", "tpu.compact_batch"): 1,
+        ("tpu.unpack", "tpu.compact_batch"): 1,
+        ("admin.compact_install", "admin.compact_dispatch"): 2}

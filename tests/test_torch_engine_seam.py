@@ -3,7 +3,10 @@ compacts through ``GpuCompactionBackend(device="cpu")`` writes the same
 ``.tsst`` bytes as one that compacts through ``TpuCompactionBackend``
 (jax on the CPU, lax path) for the same writes, and serves the same keys,
 key-range subcompactions and values wider than 32 bytes included.
-Tolerance 0: files are compared byte for byte."""
+Tolerance 0: files are compared byte for byte. The backend's counters and
+spans (the port's own Stats and collector) equal the reference backend's,
+and a failpoint armed in the port's own registry fails the port's
+compaction the way the reference's fails the reference's."""
 
 import os
 import struct
@@ -11,7 +14,11 @@ import struct
 import numpy as np
 import pytest
 
+import rocksplicator_tpu
+import rocksplicator_tpu.observability.collector as jax_collector
 import rocksplicator_tpu.storage.native_compaction as jax_native
+import rocksplicator_tpu.testing.failpoints as jax_fp
+import rocksplicator_tpu.utils.stats as jax_stats
 import rocksplicator_tpu.tpu.backend as jax_backend
 from rocksplicator_tpu.ops.kv_format import pack_entries as jax_pack
 from rocksplicator_tpu.storage import DB, DBOptions, UInt64AddOperator
@@ -20,6 +27,10 @@ from rocksplicator_tpu.storage.merge import MergeOperator
 from rocksplicator_tpu.storage.records import OpType
 from rocksplicator_tpu.tpu import TpuCompactionBackend
 from rocksplicator_tpu.utils.flags import FLAGS
+import rocksplicator_tpu_torch
+import rocksplicator_tpu_torch.observability.collector as port_collector
+import rocksplicator_tpu_torch.testing.failpoints as port_fp
+import rocksplicator_tpu_torch.utils.stats as port_stats
 from rocksplicator_tpu_torch.gpu import backend as gpu_backend
 from rocksplicator_tpu_torch.gpu import (GpuCompactionBackend,
                                          NumpyCompactionBackend)
@@ -27,6 +38,8 @@ from rocksplicator_tpu_torch.ops.kv_format import pack_entries
 from rocksplicator_tpu_torch.storage import native_compaction
 from rocksplicator_tpu_torch.storage import stream_merge as port_stream_merge
 from rocksplicator_tpu_torch.storage.merge import is_uint64_add
+from torch_parity import G1_COUNTERS, counters, reset_observability, \
+    span_shape
 
 pack64 = struct.Struct("<q").pack
 
@@ -40,10 +53,14 @@ def _reference_paths(monkeypatch):
     monkeypatch.setenv("RSTPU_FLAG_SORT_BACKEND", "lax")
     old = FLAGS.get("sort_backend")
     FLAGS.set("sort_backend", "lax")
+    # tests/conftest.py resets only the JAX package's singletons
+    reset_observability(rocksplicator_tpu, rocksplicator_tpu_torch)
     try:
         yield
     finally:
         FLAGS.set("sort_backend", old)
+        jax_fp.reset_for_test()
+        port_fp.reset_for_test()
 
 
 def _counters(db, rounds=3, keys=120, seed=0):
@@ -342,3 +359,91 @@ def test_file_sink_refuses_capabilities_it_lacks(tmp_path):
         assert backend.merge_runs_to_files(*args, **kw) is None
     assert backend.merge_runs_to_files(*args) is None
     assert backend.merge_runs_to_files(*args, max_subcompactions=4) is None
+
+
+# ---------------------------------------------------------------------------
+# the backend's counters, spans and failpoints against the reference's (G1)
+# ---------------------------------------------------------------------------
+
+
+def _g1_case(case, monkeypatch):
+    """The knobs of the subcompaction and streamed cases, in both
+    packages, as test_gpu_backend_writes_the_reference_files sets them."""
+    if case == "subcompactions":
+        monkeypatch.setattr(jax_native, "MIN_SLICE_ENTRIES", 32)
+        monkeypatch.setattr(native_compaction, "MIN_SLICE_ENTRIES", 32)
+    else:
+        for mod in (stream_merge, port_stream_merge):
+            monkeypatch.setattr(mod, "STREAM_MODE_OVERRIDE", "always")
+            monkeypatch.setattr(mod, "CHUNK_ENTRIES_OVERRIDE", 256)
+    return CASES[case]
+
+
+# the backend's spans. The reference engine's own (compaction.merge, ...)
+# land in the reference's collector in both runs; they parent the
+# reference backend's spans, while the port's spans, in the port's own
+# context, start their own traces: the parents compared are those among
+# the backend's spans.
+_BACKEND_SPANS = ("tpu.", "compact.stream")
+
+
+@pytest.mark.parametrize("case", ["subcompactions", "streamed"])
+def test_seam_counters_and_spans_match_the_reference(case, tmp_path,
+                                                     monkeypatch):
+    """Two compactions of a reference DB through each backend: the port
+    counts the reference's compaction.subcompactions or stream counters
+    in its own Stats, none reach the reference's, and its spans are the
+    reference backend's."""
+    opts, write, _direct = _g1_case(case, monkeypatch)
+    want = _run_db(tmp_path / "tpu", TpuCompactionBackend(), opts, write)
+    want_counts = counters(jax_stats)
+    want_trace = span_shape(jax_collector, _BACKEND_SPANS)
+    reset_observability(rocksplicator_tpu)
+    got = _run_db(tmp_path / "gpu", GpuCompactionBackend(device="cpu"),
+                  opts, write)
+    assert got == want
+    got_counts = counters(port_stats)
+    assert got_counts == want_counts
+    key = ("compaction.subcompactions" if case == "subcompactions"
+           else "compaction.stream_chunks")
+    assert got_counts[key] >= 4
+    assert counters(jax_stats) == dict.fromkeys(G1_COUNTERS, 0.0)
+    assert span_shape(port_collector, _BACKEND_SPANS) == want_trace
+    assert want_trace
+
+
+@pytest.mark.parametrize("case,site,spec", [
+    ("subcompactions", "compact.subcompact", "fail_nth:1"),
+    ("streamed", "compact.stream.chunk", "fail_nth:3"),
+    ("streamed", "compact.stream.refill", "fail_nth:2"),
+])
+def test_armed_site_fails_the_compaction_as_the_reference(
+        case, site, spec, tmp_path, monkeypatch):
+    """A chaos deck's site armed in each package's own registry: the
+    backend's first compaction raises FailpointError with nothing left
+    behind, the engine falls back to its tuple path, and both DBs end
+    with the same files and keys; each registry counts one trip."""
+    opts, write, _direct = _g1_case(case, monkeypatch)
+    results = {}
+    for label, backend, fp_mod in (
+            ("tpu", TpuCompactionBackend(), jax_fp),
+            ("gpu", GpuCompactionBackend(device="cpu"), port_fp)):
+        raised = []
+        sink = backend.merge_runs_to_files
+
+        def sink_spy(*a, **kw):
+            try:
+                return sink(*a, **kw)
+            except Exception as exc:
+                raised.append(type(exc).__name__)
+                raise
+
+        backend.merge_runs_to_files = sink_spy
+        fp_mod.activate(site, spec)
+        results[label] = (_run_db(tmp_path / label, backend, opts, write),
+                          raised, fp_mod.trip_counts())
+        fp_mod.reset_for_test()
+    assert results["gpu"] == results["tpu"]
+    (_files, items, _gets), raised, trips = results["gpu"]
+    assert raised == ["FailpointError"] and trips == {site: 1}
+    assert items

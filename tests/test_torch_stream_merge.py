@@ -10,7 +10,10 @@ reference engine. Tolerance 0: files are compared byte for byte.
 
 Both packages keep their own knobs and budget singletons; every test pins
 both packages' ``STREAM_MODE_OVERRIDE`` and ``CHUNK_ENTRIES_OVERRIDE`` and
-resets both budgets after it runs.
+resets both budgets after it runs. They keep their own Stats, span
+collectors and failpoint tables too: the stream's counters, its
+``compact.stream`` span and its two failpoints are held against the
+reference's, each package read and armed on its own.
 """
 
 import hashlib
@@ -20,7 +23,11 @@ import struct
 import numpy as np
 import pytest
 
+import rocksplicator_tpu
+import rocksplicator_tpu.observability.collector as jax_collector
 import rocksplicator_tpu.storage.stream_merge as jax_sm
+import rocksplicator_tpu.testing.failpoints as jax_fp
+import rocksplicator_tpu.utils.stats as jax_stats
 import rocksplicator_tpu.tpu.backend as jax_backend
 from rocksplicator_tpu.storage import DB, DBOptions, UInt64AddOperator
 from rocksplicator_tpu.storage.compaction_scheduler import \
@@ -31,7 +38,11 @@ from rocksplicator_tpu.tpu import TpuCompactionBackend
 from rocksplicator_tpu.tpu.format import \
     SstBlockLaneSource as JaxSstBlockLaneSource
 from rocksplicator_tpu.utils.flags import FLAGS
+import rocksplicator_tpu_torch
+import rocksplicator_tpu_torch.observability.collector as port_collector
 import rocksplicator_tpu_torch.storage.stream_merge as sm
+import rocksplicator_tpu_torch.testing.failpoints as port_fp
+import rocksplicator_tpu_torch.utils.stats as port_stats
 from rocksplicator_tpu_torch.gpu import backend as gpu_backend
 from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
 from rocksplicator_tpu_torch.gpu.compaction_service import GpuChunkResolver
@@ -42,6 +53,8 @@ from rocksplicator_tpu_torch.ops.kv_format import pack_entries
 from rocksplicator_tpu_torch.storage.compaction_scheduler import (
     STALL_BOOST_MS, adaptive_chunk_entries)
 from rocksplicator_tpu_torch.storage.sst import SSTReader
+from torch_parity import G1_COUNTERS, counters, reset_observability, \
+    span_shape
 
 P, D, M = 1, 2, 3
 pack_u64 = struct.Struct("<q").pack
@@ -58,12 +71,16 @@ def _pin_both_packages(monkeypatch):
     monkeypatch.setenv("RSTPU_FLAG_SORT_BACKEND", "lax")
     old = FLAGS.get("sort_backend")
     FLAGS.set("sort_backend", "lax")
+    # tests/conftest.py resets only the JAX package's singletons
+    reset_observability(rocksplicator_tpu, rocksplicator_tpu_torch)
     try:
         yield
     finally:
         FLAGS.set("sort_backend", old)
         for mod in (jax_sm, sm):
             mod.CompactionMemoryBudget.reset_for_test()
+        jax_fp.reset_for_test()
+        port_fp.reset_for_test()
 
 
 def _knobs(mode, chunk=None):
@@ -601,3 +618,124 @@ def test_chunk_entries_env(monkeypatch):
     sm.CHUNK_ENTRIES_OVERRIDE = 7
     assert sm.default_chunk_entries() == 7
     assert sm.est_row_bytes(2) == jax_sm.est_row_bytes(2) == 76
+
+
+# ---------------------------------------------------------------------------
+# the stream's counters, span and failpoints against the reference's (G1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("merge_op", [None, UInt64AddOperator()],
+                         ids=["no-op", "uint64add"])
+def test_stream_counters_and_span_match_the_reference(tmp_path, merge_op):
+    """The same streamed job through both packages: the same chunk,
+    refill, merge and decline counts, each in its own Stats (the port's
+    chunks are its ``last_stream_chunks``), and the same compact.stream
+    span with its runs, entries and budget."""
+    root = str(tmp_path)
+    paths = _straddle_runs(root)
+    if merge_op is None:
+        paths = [paths[0], paths[2]]
+    _reference_merge(paths, "ref", root, merge_op, True, "always", 300)
+    want = counters(jax_stats)
+    want_trace = span_shape(jax_collector)
+    reset_observability(rocksplicator_tpu)
+    backend = GpuCompactionBackend(device="cpu")
+    _port_merge(paths, "s", root, merge_op, True, "always", chunk=300,
+                backend=backend)
+    got = counters(port_stats)
+    assert got == want
+    assert got["compaction.stream_chunks"] == backend.last_stream_chunks >= 3
+    assert got["compaction.stream_merges"] == 1
+    assert got["compaction.stream_declines"] == 0
+    assert got["compaction.stream_refills"] >= len(paths)
+    # the reference's Stats saw nothing of the port's stream
+    assert counters(jax_stats) == dict.fromkeys(G1_COUNTERS, 0.0)
+    trace = span_shape(port_collector)
+    assert trace == want_trace
+    [(name, parent, ann, err)] = trace
+    assert (name, parent, err) == ("compact.stream", None, "")
+    assert dict(ann)["runs"] == len(paths)
+
+
+def test_stream_decline_is_counted_as_the_reference(tmp_path):
+    """A width drift declines the stream mid-flight in both packages: one
+    stream_declines each, the chunks and refills before it equal, no
+    stream_merges, and the compact.stream span records the decline."""
+    root = str(tmp_path)
+    path = os.path.join(root, "drift.tsst")
+    entries = [(b"d%05d" % i, i + 1, P, b"v" * 8) for i in range(2500)]
+    entries += [(b"e%05d" % i, i + 1, P, b"w" * 16) for i in range(600)]
+    _write_run(path, entries, block_bytes=1024)
+    _knobs("always", 256)
+    results = {}
+    for label, mod, reader_cls, stats_mod, col in (
+            ("jax", jax_sm, JaxSSTReader, jax_stats, jax_collector),
+            ("port", sm, SSTReader, port_stats, port_collector)):
+        pf, made = _path_factory(root, label)
+        reader = reader_cls(path)
+        try:
+            out = mod.maybe_stream_merge([reader], None, True, pf, 4096, 0,
+                                         10, 1024)
+        finally:
+            reader.close()
+        assert out is None and made
+        assert not any(os.path.exists(p) for p in made)
+        results[label] = (counters(stats_mod), span_shape(col), len(made))
+    assert results["port"] == results["jax"]
+    got, trace, _made = results["port"]
+    assert got["compaction.stream_declines"] == 1
+    assert got["compaction.stream_merges"] == 0
+    assert got["compaction.stream_chunks"] >= 2
+    [(name, _parent, _ann, err)] = trace
+    assert name == "compact.stream" and err == "UnsupportedBatch"
+
+
+def _armed_merge(label, paths, root, site, spec):
+    """One package's streamed merge with ``site`` armed in its own
+    registry: (exception class name, files made, files left, trips)."""
+    fp_mod = jax_fp if label == "jax" else port_fp
+    _knobs("always", 300)
+    pf, made = _path_factory(root, label + site)
+    fp_mod.activate(site, spec)
+    if label == "jax":
+        readers = [JaxSSTReader(p) for p in paths]
+        backend = TpuCompactionBackend()
+    else:
+        readers = [SSTReader(p) for p in paths]
+        backend = GpuCompactionBackend(device="cpu")
+    try:
+        with pytest.raises(fp_mod.FailpointError) as exc:
+            backend.merge_runs_to_files(readers, UInt64AddOperator(), True,
+                                        pf, 4096, 0, 10, 1024)
+    finally:
+        for r in readers:
+            r.close()
+        trips = fp_mod.trip_counts()
+        fp_mod.reset_for_test()
+    return (type(exc.value).__name__, str(exc.value), len(made),
+            [p for p in made if os.path.exists(p)], trips)
+
+
+@pytest.mark.parametrize("site", ["compact.stream.chunk",
+                                  "compact.stream.refill"])
+def test_armed_stream_site_fails_the_merge_as_the_reference(tmp_path, site):
+    """Each package's own site armed at fail_nth:k, k one short of the
+    job's count: the merge raises FailpointError after writing a file,
+    sweeps every one of them, and the other package's registry is not
+    touched."""
+    root = str(tmp_path)
+    paths = _straddle_runs(root)
+    _reference_merge(paths, "count", root, UInt64AddOperator(), True,
+                     "always", 300)
+    total = counters(jax_stats)[
+        "compaction.stream_chunks" if site.endswith("chunk")
+        else "compaction.stream_refills"]
+    spec = f"fail_nth:{int(total) - 1}"
+    want = _armed_merge("jax", paths, root, site, spec)
+    got = _armed_merge("port", paths, root, site, spec)
+    assert got == want
+    name, _msg, made, left, trips = got
+    assert name == "FailpointError" and made >= 1 and left == []
+    assert trips == {site: 1}
+    assert sm.CompactionMemoryBudget.get().live_bytes() == 0

@@ -43,3 +43,49 @@ def assert_same_outputs(want: dict, got: dict, what: str = "") -> None:
             np.testing.assert_array_equal(w, g, err_msg=f"{what} {k}")
         else:
             assert type(g) is type(w) and g == w, (what, k, w, g)
+
+
+# the JAX package's compaction counters that the port emits at the same
+# sites (its own Stats singleton)
+G1_COUNTERS = ("compaction.subcompactions", "compaction.stream_chunks",
+               "compaction.stream_refills", "compaction.stream_merges",
+               "compaction.stream_declines")
+
+
+def counters(stats_module, names=G1_COUNTERS) -> dict:
+    """The counters of ``names`` in one package's Stats singleton."""
+    st = stats_module.Stats.get()
+    return {n: st.get_counter(n) for n in names}
+
+
+def span_shape(collector_module, prefixes=("",)) -> dict:
+    """One package's kept spans whose names start with one of
+    ``prefixes``, as a multiset: (name, parent's name, sorted
+    annotations, error class) -> count; a parent outside the selected
+    spans counts as none. Ids and times are left out, so two packages'
+    traces of the same job compare equal."""
+    spans = [s for s in collector_module.SpanCollector.get().snapshot()
+             if s["name"].startswith(tuple(prefixes))]
+    names = {s["span_id"]: s["name"] for s in spans}
+    shape: dict = {}
+    for s in spans:
+        key = (s["name"], names.get(s["parent_id"]),
+               tuple(sorted(s["annotations"].items())),
+               (s["error"] or "").split("(")[0])
+        shape[key] = shape.get(key, 0) + 1
+    return shape
+
+
+def reset_observability(*packages, sample_rate: float = 1.0) -> None:
+    """Zero each package's Stats, empty its span collector (keeping every
+    root at ``sample_rate``) and disarm its failpoints; ``packages`` are
+    the top modules (``rocksplicator_tpu``, ``rocksplicator_tpu_torch``)."""
+    import importlib
+
+    for pkg in packages:
+        name = pkg.__name__
+        importlib.import_module(name + ".utils.stats").Stats.reset_for_test()
+        col = importlib.import_module(name + ".observability.collector")
+        col.SpanCollector.reset_for_test()
+        col.SpanCollector.get().configure(sample_rate=sample_rate)
+        importlib.import_module(name + ".testing.failpoints").reset_for_test()
