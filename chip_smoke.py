@@ -62,6 +62,25 @@ PyTorch built for CUDA. It
    group and a file, every file byte-identical to the numpy-resolved
    sink's, no DB compacted by the per-DB fallback, no error logged by the
    port's admin logger);
+4f. drives the port's storage engine, ``storage.DB``, in the
+   environment's stream mode: the counter traffic (4 x 2^20 ops in
+   WriteBatches of 1024) through ``DB.write`` into two DBs that compact on
+   the card (fused and bitonic) and one on the host
+   (``NativeCompactionBackend``), each run's last batch flushing 2^20
+   entries and the fourth flush compacting L0 inline, then
+   ``compact_range`` (``engine_db``: files byte for byte against the
+   host DB's, one K2 (K1) call a compaction and one K3 call a file, every
+   key of the fused DB read back through ``multi_get`` and a full scan
+   against a numpy oracle, the native library loaded, host-clock seconds
+   of each write run, flush and compaction); the same traffic from 4
+   writer threads into a DB with background flush and compaction and its
+   default backend, the card (``engine_db_background``: K2 launched from
+   the compaction thread before ``compact_range``, no background failure,
+   every write read back, write() p50 and p99); and the 12 DBs of
+   ``service_dbs`` filled by ``ingest_external_file`` and compacted by
+   ``BatchCompactor(device=cuda)`` from 12 threads
+   (``engine_db_ingest``: files byte for byte against the same DBs
+   compacted on the host, no per-DB fallback, sampled reads equal);
 4e. before each engine-seam and service call zeroes the port's Stats,
    empties its span collector (every root kept) and disarms its
    failpoints, and after it checks them: the stream counters
@@ -1329,6 +1348,527 @@ def batch_compactor(dev, prepared: tuple, card: str) -> tuple:
             "per_db_fallbacks": 0}, launches
 
 
+# ---- the port's storage engine on the card ---------------------------------
+# engine_db: 4 runs of this many counter ops, written through DB.write in
+# WriteBatches of ENGINE_BATCH ops, one memtable flush a run; four flushes
+# fill one launch (MAX_TPU_ENTRIES)
+ENGINE_RUN_ENTRIES = 1 << 20
+ENGINE_BATCH = 1024
+ENGINE_WRITERS = 4
+# multi_get read-back in slices of this many keys
+ENGINE_READ_SLICE = 1 << 16
+
+
+def engine_traffic(seed: int = 700) -> dict:
+    """The counter service's traffic of ``counter_runs`` as DB operations:
+    per run, 16-byte keys ("counter:" + a big-endian id), the op type
+    (3 MERGE, 1 PUT, 2 DELETE) and 8-byte little-endian values, each run
+    in a seeded random order; the memtable_bytes at which the engine
+    flushes after each run's last batch; and the numpy oracle of every
+    touched key's final value."""
+    import numpy as np
+
+    key_space = 2 * ENGINE_RUN_ENTRIES
+    runs = counter_runs(4, ENGINE_RUN_ENTRIES, key_space, seed)
+    rng = np.random.default_rng(seed + 1)
+    ops = []
+    exists = np.zeros(key_space, dtype=bool)
+    touched = np.zeros(key_space, dtype=bool)
+    value = np.zeros(key_space, dtype=np.uint64)
+    for lanes in runs:
+        order = rng.permutation(ENGINE_RUN_ENTRIES)
+        kw = lanes["key_words_be"][order]
+        ids = ((kw[:, 2].astype(np.uint64) << np.uint64(32))
+               | kw[:, 3].astype(np.uint64))
+        vtype = lanes["vtype"][order]
+        vals = ((lanes["val_words"][order, 1].astype(np.uint64)
+                 << np.uint64(32))
+                | lanes["val_words"][order, 0].astype(np.uint64))
+        key_bytes = np.ascontiguousarray(kw[:, :4].astype(">u4")).tobytes()
+        ops.append((ids, vtype, vals, key_bytes))
+        # the oracle: keys are distinct within a run
+        put, dele, mrg = vtype == 1, vtype == 2, vtype == 3
+        value[ids[put]] = vals[put]
+        with np.errstate(over="ignore"):
+            value[ids[mrg]] = np.where(exists[ids[mrg]], value[ids[mrg]],
+                                       np.uint64(0)) + vals[mrg]
+        exists[ids[put | mrg]] = True
+        exists[ids[dele]] = False
+        touched[ids] = True
+    # MemTable.approximate_bytes: key + value + 16 a record
+    run_bytes = [int((32 + np.where(v == 2, 0, 8)).sum())
+                 for _i, v, _x, _k in ops]
+    last_batch = [int((32 + np.where(v[-ENGINE_BATCH:] == 2, 0, 8)).sum())
+                  for _i, v, _x, _k in ops]
+    memtable_bytes = min(run_bytes)
+    if not all(b - last < memtable_bytes
+               for b, last in zip(run_bytes, last_batch)):
+        raise AssertionError("engine traffic: no memtable size flushes "
+                             "once a run")
+    return {"ops": ops, "memtable_bytes": memtable_bytes,
+            "touched": np.flatnonzero(touched).astype(np.uint64),
+            "exists": exists, "value": value}
+
+
+def _card_backend(dev):
+    """A DB's compaction backend on ``dev``: None (the port's default, the
+    card) for a CUDA device; named where the script is rehearsed on the
+    CPU."""
+    from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+
+    return None if str(dev).startswith("cuda") else GpuCompactionBackend(
+        device=dev)
+
+
+def _key_of(i) -> bytes:
+    return b"counter:" + int(i).to_bytes(8, "big")
+
+
+def _write_ops(db, ids, vtype, vals, key_bytes, rows, latencies=None):
+    """Write ``rows`` of one run through ``db.write`` in WriteBatches of
+    ENGINE_BATCH ops; ``latencies`` collects each write()'s seconds."""
+    from rocksplicator_tpu_torch.storage import WriteBatch
+
+    vbytes = vals.astype("<u8").tobytes()
+    vt = vtype.tolist()
+    for s in range(0, len(rows), ENGINE_BATCH):
+        batch = WriteBatch()
+        for i in rows[s:s + ENGINE_BATCH]:
+            key = key_bytes[16 * i:16 * i + 16]
+            t = vt[i]
+            if t == 3:
+                batch.merge(key, vbytes[8 * i:8 * i + 8])
+            elif t == 1:
+                batch.put(key, vbytes[8 * i:8 * i + 8])
+            else:
+                batch.delete(key)
+        t0 = time.perf_counter()
+        db.write(batch)
+        if latencies is not None:
+            latencies.append(time.perf_counter() - t0)
+
+
+def check_read_back(db, traffic: dict, what: str, ids=None) -> dict:
+    """Every touched key (or those of ``ids``) read back through multi_get
+    equals the oracle, and one full iterator scan yields exactly the live
+    keys and values, in order. Returns host-clock seconds."""
+    import numpy as np
+
+    ids = traffic["touched"] if ids is None else ids
+    exists, value = traffic["exists"], traffic["value"]
+    t0 = time.time()
+    for s in range(0, len(ids), ENGINE_READ_SLICE):
+        part = ids[s:s + ENGINE_READ_SLICE]
+        got = db.multi_get([_key_of(i) for i in part.tolist()])
+        want = [int(value[i]).to_bytes(8, "little") if exists[i] else None
+                for i in part.tolist()]
+        if got != want:
+            bad = next(j for j, (g, w) in enumerate(zip(got, want))
+                       if g != w)
+            raise AssertionError(f"{what}: key {int(part[bad])} reads "
+                                 f"{got[bad]!r}, want {want[bad]!r}")
+    t1 = time.time()
+    live = ids[exists[ids]]
+    live.sort()
+    n = 0
+    for key, val in db.new_iterator():
+        if n >= len(live) or key != _key_of(live[n]) \
+                or val != int(value[live[n]]).to_bytes(8, "little"):
+            raise AssertionError(f"{what}: scan entry {n} is {key!r}")
+        n += 1
+    if n != len(live):
+        raise AssertionError(f"{what}: scan gave {n} keys, want {len(live)}")
+    return {"multi_get_s": t1 - t0, "scan_s": time.time() - t1,
+            "keys_read": int(len(ids)), "live_keys": int(len(live))}
+
+
+def _db_files(path: str) -> dict:
+    """{file number: bytes} of a DB's .tsst files."""
+    import os
+
+    return {f.rsplit("-", 1)[1]: open(os.path.join(path, f), "rb").read()
+            for f in os.listdir(path) if f.endswith(".tsst")}
+
+
+def _masked_manifest(path: str) -> dict:
+    import os
+
+    with open(os.path.join(path, "MANIFEST")) as f:
+        text = f.read()
+    return json.loads(text.replace(json.loads(text)["incarnation"], "INC"))
+
+
+def _same_db_files(a: str, b: str, what: str) -> int:
+    """Two DBs hold byte-identical .tsst files, matched by file number,
+    and equal levels; the file count."""
+    fa, fb = _db_files(a), _db_files(b)
+    if sorted(fa) != sorted(fb):
+        raise AssertionError(f"{what}: files {sorted(fa)} vs {sorted(fb)}")
+    for num in fa:
+        if fa[num] != fb[num]:
+            raise AssertionError(f"{what}: file {num} differs")
+    if _masked_manifest(a) != _masked_manifest(b):
+        raise AssertionError(f"{what}: levels differ")
+    return len(fa)
+
+
+def _timed_db(db, backend, log: list) -> None:
+    """Time each flush and each inline L0 compaction of ``db`` on the host
+    clock, with the kernel launches and the backend's stage seconds of
+    each compaction."""
+    from rocksplicator_tpu_torch.ops import _build
+
+    write_mem_sst, compact_l0 = db._write_mem_sst, db._compact_level0_locked
+
+    def flush(path, mem):
+        t0 = time.time()
+        write_mem_sst(path, mem)
+        log.append({"what": "flush", "entries": len(mem._flat_keys),
+                    "seconds": time.time() - t0})
+
+    def compact():
+        before = dict(_build.LAUNCHES)
+        outs = len(db._levels[0]) + len(db._levels[1])
+        t0 = time.time()
+        compact_l0()
+        log.append({"what": "l0_compaction", "inputs": outs,
+                    "outputs": len(db._levels[1]),
+                    "seconds": time.time() - t0,
+                    "launches": {k: _build.LAUNCHES[k] - before[k]
+                                 for k in before},
+                    "stages": dict(getattr(backend, "last_stage_seconds",
+                                           {}))})
+
+    db._write_mem_sst, db._compact_level0_locked = flush, compact
+
+
+def engine_db(dev, traffic: dict, work_dir: str, card: str) -> tuple:
+    """The port's DB at MAX_TPU_ENTRIES: the counter traffic written
+    through DB.write into two DBs that compact on the card (under the
+    fused and the bitonic sort backends: K2, or K1 and the torch
+    resolve) and one that compacts on the host (the port's
+    NativeCompactionBackend), DBOptions' defaults otherwise (32 KiB blocks, zlib, 10 bits a key, 64 MiB files),
+    UInt64AddOperator, level0_compaction_trigger 4, inline flushes and
+    compactions. Each run's last batch flushes 2^20 entries; the fourth
+    flush compacts L0 into L1 (2^22 entries), then compact_range()
+    compacts everything into the bottom level. ``max_subcompactions`` is
+    1 (the host's slices write a file set each, the card's one), and the
+    memory budget 1 GiB (the in-RAM route: one K2 call a compaction).
+    Each card DB's files must be byte-identical to the host DB's, K2 (K1)
+    run once a compaction and K3 once an output file, and every key of
+    the fused card DB read back equal to the oracle."""
+    import os
+
+    import torch
+
+    from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage import DB, DBOptions
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.native import binding
+    from rocksplicator_tpu_torch.storage.native_compaction import (
+        NativeCompactionBackend)
+
+    report = {"card": card, "ops": 4 * ENGINE_RUN_ENTRIES,
+              "memtable_bytes": traffic["memtable_bytes"], "dbs": {}}
+    launches = {}
+    paths = {}
+    for name, backend in (("fused", GpuCompactionBackend(device=dev)),
+                          ("bitonic", GpuCompactionBackend(device=dev)),
+                          ("host", NativeCompactionBackend())):
+        _sort_flag(SEAM_FLAGS.get(name))
+        path = paths[name] = os.path.join(work_dir, f"engine_{name}")
+        db = DB(path, DBOptions(
+            merge_operator=UInt64AddOperator(), compaction_backend=backend,
+            level0_compaction_trigger=4,
+            memtable_bytes=traffic["memtable_bytes"], max_subcompactions=1,
+            compaction_memory_budget_bytes=1 << 30))
+        log: list = []
+        _timed_db(db, backend, log)
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            write_s = []
+            for ids, vtype, vals, key_bytes in traffic["ops"]:
+                t0 = time.time()
+                _write_ops(db, ids, vtype, vals, key_bytes,
+                           range(len(ids)))
+                write_s.append(time.time() - t0)
+            l0 = dict(_build.LAUNCHES)
+            before = dict(_build.LAUNCHES)
+            t0 = time.time()
+            db.compact_range()
+            torch.cuda.synchronize()
+            log.append({"what": "compact_range", "seconds": time.time() - t0,
+                        "outputs": len(db._levels[-1]),
+                        "launches": {k: _build.LAUNCHES[k] - before[k]
+                                     for k in before},
+                        "stages": dict(getattr(
+                            backend, "last_stage_seconds", {}))})
+            launches[name] = dict(_build.LAUNCHES)
+            flushes = [e for e in log if e["what"] == "flush"]
+            compactions = [e for e in log if e["what"] != "flush"]
+            if [e["entries"] for e in flushes] != [ENGINE_RUN_ENTRIES] * 4:
+                raise AssertionError(f"engine db {name}: flushes {flushes}")
+            if [e["what"] for e in compactions] != ["l0_compaction",
+                                                    "compact_range"]:
+                raise AssertionError(f"engine db {name}: {compactions}")
+            if name in SEAM_FLAGS:
+                sort = {"fused": "fused_resolve", "bitonic": "bitonic_sort"}
+                for e in compactions:
+                    got = e["launches"]
+                    if got[sort[name]] != 1 or sum(got.values()) \
+                            != 1 + e["outputs"] \
+                            or got["bloom_build"] != e["outputs"]:
+                        raise AssertionError(
+                            f"engine db {name}: {e['what']} launches "
+                            f"{got}, {e['outputs']} files")
+            elif any(launches[name].values()):
+                raise AssertionError(f"engine db host launched "
+                                     f"{launches[name]}")
+            report["dbs"][name] = {
+                "write_s_per_run": write_s, "flushes": flushes,
+                "compactions": compactions, "l0_launches": l0,
+                "levels": [len(f) for f in db._levels]}
+            if name == "fused":
+                report["dbs"][name]["read_back"] = check_read_back(
+                    db, traffic, "engine db card")
+        finally:
+            db.close()
+    _sort_flag(None)
+    if binding.get_native() is None:
+        raise AssertionError("engine db: the native library is not loaded")
+    report["identical_files"] = {
+        name: _same_db_files(paths[name], paths["host"], f"engine db {name}")
+        for name in SEAM_FLAGS}
+    total = {k: launches["fused"][k] + launches["bitonic"][k]
+             for k in launches["fused"]}
+    report["launches"] = total
+    return report, total
+
+
+def engine_db_background(dev, traffic: dict, work_dir: str,
+                         card: str) -> tuple:
+    """The same traffic from ENGINE_WRITERS threads on disjoint key ranges
+    into one DB with background flush and compaction threads, the
+    scheduler on and the default backend (the card). Then flush(), wait
+    for the compaction thread to go idle, and compact_range(). Every
+    acknowledged write reads back equal to the oracle, no background job
+    failed, and the compaction thread launched K2 before compact_range."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage import DB, DBOptions
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+
+    _sort_flag(SEAM_FLAGS["fused"])
+    db = DB(os.path.join(work_dir, "engine_bg"), DBOptions(
+        merge_operator=UInt64AddOperator(), level0_compaction_trigger=4,
+        compaction_backend=_card_backend(dev),
+        memtable_bytes=traffic["memtable_bytes"],
+        background_compaction=True, compaction_scheduler=True))
+    threads_of = []
+    count_launch = _build.count_launch
+
+    def counted(name, cuda_launches=None):
+        threads_of.append((name, threading.current_thread().name))
+        count_launch(name, cuda_launches)
+
+    key_space = 2 * ENGINE_RUN_ENTRIES
+    latencies = [[] for _ in range(ENGINE_WRITERS)]
+    failed = []
+
+    def writer(w):
+        lo = key_space * w // ENGINE_WRITERS
+        hi = key_space * (w + 1) // ENGINE_WRITERS
+        try:
+            for ids, vtype, vals, key_bytes in traffic["ops"]:
+                rows = np.flatnonzero((ids >= lo) & (ids < hi)).tolist()
+                _write_ops(db, ids, vtype, vals, key_bytes, rows,
+                           latencies[w])
+        except Exception as exc:  # the phase fails on it below
+            failed.append(repr(exc))
+
+    _build.count_launch = counted
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        threads = [threading.Thread(target=writer, args=(w,))
+                   for w in range(ENGINE_WRITERS)]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        write_s = time.time() - t0
+        if failed:
+            raise AssertionError(f"engine db background: {failed}")
+        db.flush()
+        flush_s = time.time() - t0 - write_s
+        deadline = time.time() + 600
+        while True:
+            idle = db._compaction_mutex.acquire(blocking=False)
+            if idle:
+                db._compaction_mutex.release()
+            if idle and len(db._levels[0]) < 4:
+                break
+            if time.time() > deadline:
+                raise AssertionError("engine db background: the "
+                                     "compaction thread never went idle")
+            time.sleep(0.05)
+        idle_s = time.time() - t0 - write_s - flush_s
+        bg = list(threads_of)
+        before = dict(_build.LAUNCHES)
+        t1 = time.time()
+        db.compact_range()
+        torch.cuda.synchronize()
+        compact_s = time.time() - t1
+        launches = dict(_build.LAUNCHES)
+        read = check_read_back(db, traffic, "engine db background")
+        failures = (db._bg_flush_failures, db._bg_compaction_failures)
+        levels = [len(f) for f in db._levels]
+    finally:
+        _build.count_launch = count_launch
+        db.close()
+    bg_k2 = [t for k, t in bg if k == "fused_resolve"]
+    if not bg_k2 or not all(t.startswith("lsm-compact-") for t in bg_k2):
+        raise AssertionError(f"engine db background: K2 before "
+                             f"compact_range from {bg_k2}")
+    if failures != (0, 0):
+        raise AssertionError(f"engine db background: failures {failures}")
+    lat = sorted(x for per in latencies for x in per)
+    return {"card": card, "writers": ENGINE_WRITERS,
+            "ops": 4 * ENGINE_RUN_ENTRIES, "write_s": write_s,
+            "flush_s": flush_s, "wait_idle_s": idle_s,
+            "compact_range_s": compact_s, "read_back": read,
+            "writes": len(lat),
+            "write_p50_ms": 1e3 * lat[len(lat) // 2],
+            "write_p99_ms": 1e3 * lat[min(len(lat) - 1,
+                                          (99 * len(lat)) // 100)],
+            "background_launches": {
+                k: sum(1 for n, _t in bg if n == k) for k in before},
+            "compact_range_launches": {k: launches[k] - before[k]
+                                       for k in before},
+            "bg_failures": list(failures), "levels": levels,
+            "launches": launches}, launches
+
+
+def engine_db_ingest(dev, prepared: tuple, work_dir: str, card: str) -> tuple:
+    """The post-ingest path on real DBs: the 12 DBs' runs of
+    ``stub_db_inputs`` ingested into 12 port DBs (ingest_external_file, a
+    run a call, so newer runs take higher global seqnos), submitted from
+    12 threads to BatchCompactor(device=cuda). Each DB's files must equal
+    those of the same DB ingested again and compacted by compact_range on
+    the host (NativeCompactionBackend, one slice); no DB may take the
+    per-DB fallback; a sample of keys reads back the same from both."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rocksplicator_tpu_torch.admin import BatchCompactor
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage import DB, DBOptions
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.native_compaction import (
+        NativeCompactionBackend)
+
+    inputs, _want, _counts, _options, _s = prepared
+    fallbacks = []
+
+    def opened(name, tag, backend):
+        root = inputs[name][0]
+        db = DB(os.path.join(root, tag), DBOptions(
+            merge_operator=UInt64AddOperator(), compaction_backend=backend,
+            max_subcompactions=1))
+        t0 = time.time()
+        for run in inputs[name][1]:
+            db.ingest_external_file([run])
+        return db, time.time() - t0
+
+    t0 = time.time()
+    cards, hosts = {}, {}
+    for name in inputs:
+        cards[name], _ = opened(name, "eng_card", _card_backend(dev))
+        hosts[name], _ = opened(name, "eng_host", NativeCompactionBackend())
+    ingest_s = time.time() - t0
+    for name, db in cards.items():
+        def fallback(name=name):
+            fallbacks.append(name)
+            raise AssertionError(f"{name}: the per-DB fallback was taken")
+        db.compact_range = fallback
+    compactor = BatchCompactor(device=dev)
+    start = threading.Barrier(len(cards))
+    failed = {}
+
+    def submit(name, db):
+        start.wait()
+        try:
+            compactor.compact(name, db)
+        except Exception as exc:  # the phase fails on it below
+            failed[name] = repr(exc)
+
+    _sort_flag(SEAM_FLAGS["fused"])
+    threads = [threading.Thread(target=submit, args=item)
+               for item in cards.items()]
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+        sizes = list(compactor.batch_sizes)
+    finally:
+        compactor.close()
+    t0 = time.time()
+    for db in hosts.values():
+        db.compact_range()
+    host_s = time.time() - t0
+    rng = np.random.default_rng(900)
+    sample = [b"counter:" + int(i).to_bytes(8, "big")
+              for i in rng.choice(4 * DBS_RUN_ENTRIES, 4096, replace=False)]
+    files = found = 0
+    try:
+        if failed or fallbacks or any(t.is_alive() for t in threads):
+            raise AssertionError(f"engine db ingest: failed {failed}, "
+                                 f"fallbacks {fallbacks}")
+        for name in inputs:
+            files += _same_db_files(cards[name].path, hosts[name].path,
+                                    f"engine db ingest {name}")
+            got = cards[name].multi_get(sample)
+            if got != hosts[name].multi_get(sample):
+                raise AssertionError(f"engine db ingest {name}: reads")
+            found += sum(v is not None for v in got)
+    finally:
+        for db in list(cards.values()) + list(hosts.values()):
+            db.close()
+    groups = sum(-(-b // BENCH_SHARDS) for b in sizes)
+    if sum(sizes) != len(cards) or launches["fused_resolve"] != groups \
+            or launches["bloom_build"] != groups + files:
+        raise AssertionError(f"engine db ingest: batches {sizes}, launches "
+                             f"{launches}, {files} files")
+    if not found:
+        raise AssertionError("engine db ingest: no sampled key was found")
+    return {"card": card, "dbs": len(cards), "runs_per_db": 4,
+            "entries_per_db": 4 * DBS_RUN_ENTRIES, "ingest_s": ingest_s,
+            "batch_sizes": sizes, "launch_groups": groups,
+            "seconds": seconds, "host_compact_range_s": host_s,
+            "files": files, "identical_files": files,
+            "sampled_keys": len(sample) * len(cards), "found": found,
+            "per_db_fallbacks": len(fallbacks),
+            "launches": launches}, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1814,6 +2354,17 @@ def main() -> int:
         # ---- 4d. the post-ingest BatchCompactor over the same DBs ------
         compactor, compactor_launches = batch_compactor(dev, prepared, card)
         emit({"phase": "batch_compactor", **compactor})
+        # ---- 4f. the port's storage engine, in auto stream mode --------
+        traffic = engine_traffic()
+        eng, eng_launches = engine_db(dev, traffic, work_dir, card)
+        emit({"phase": "engine_db", **eng})
+        eng_bg, eng_bg_launches = engine_db_background(dev, traffic,
+                                                       work_dir, card)
+        emit({"phase": "engine_db_background", **eng_bg})
+        del traffic
+        eng_in, eng_in_launches = engine_db_ingest(dev, prepared, work_dir,
+                                                   card)
+        emit({"phase": "engine_db_ingest", **eng_in})
         cost = instrumentation_cost()
         per_stream = stream["backends"]["fused"]["counters"]
         emit({"phase": "instrumented_seconds", "card": card,
@@ -1842,6 +2393,9 @@ def main() -> int:
         "service_batch": svc_batch_launches,
         "service_dbs": svc_dbs_launches,
         "batch_compactor": compactor_launches,
+        "engine_db": eng_launches,
+        "engine_db_background": eng_bg_launches,
+        "engine_db_ingest": eng_in_launches,
     }
     launches_by_path = {p: {k: c[k] for k in sources}
                         for p, c in launches_by_path.items()}

@@ -465,6 +465,30 @@ def numpy_merge_resolve(batch: KVBatch, uint64_add: bool,
     return out, int(keep.sum())
 
 
-# The port's best CPU merge-resolve is the numpy one: it does not load the
-# reference's native library, whose resolve is element-exact with numpy.
-cpu_merge_resolve = numpy_merge_resolve
+def cpu_merge_resolve(batch: KVBatch, uint64_add: bool,
+                      drop_tombstones: bool) -> Tuple[tuple, int]:
+    """The best CPU merge-resolve: the native library's
+    (``storage/native``, a packed-record sort and a linear segment
+    resolve) where it is loaded, else numpy's. Both are element-exact
+    with the kernel."""
+    from ..storage.native.binding import get_native
+
+    lib = get_native()
+    if lib is None or not getattr(lib, "has_merge_resolve", False):
+        return numpy_merge_resolve(batch, uint64_add, drop_tombstones)
+    valid_n = batch.num_valid()
+    seq = (batch.seq_hi[:valid_n].astype(np.uint64) << np.uint64(32)) | (
+        batch.seq_lo[:valid_n].astype(np.uint64))
+    out_kw, out_klen, out_seq, out_vtype, out_vw, out_vlen, count = (
+        lib.merge_resolve(
+            batch.key_words_be[:valid_n], batch.key_len[:valid_n], seq,
+            batch.vtype[:valid_n], batch.val_words[:valid_n],
+            batch.val_len[:valid_n], uint64_add, drop_tombstones))
+    out = (
+        out_kw[:count], out_klen[:count],
+        (out_seq[:count] >> np.uint64(32)).astype(np.uint32),
+        (out_seq[:count] & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+        out_vtype[:count].astype(batch.vtype.dtype), out_vw[:count],
+        out_vlen[:count],
+    )
+    return out, count

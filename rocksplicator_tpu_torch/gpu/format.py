@@ -316,7 +316,7 @@ def _finish(writer: SSTWriter, bloom_words: Optional[np.ndarray],
         bloom = BloomFilter.build(
             [key_bytes[i].tobytes() for i in range(len(key_bytes))],
             bits_per_key)
-    return writer.finish(bloom, extra_props)
+    return writer.finish(precomputed_bloom=bloom, extra_props=extra_props)
 
 
 def _write_planar(arrays: Dict[str, np.ndarray], count: int, path: str,
@@ -326,7 +326,8 @@ def _write_planar(arrays: Dict[str, np.ndarray], count: int, path: str,
     """PLANAR sink: per-block plane bytes and word-domain checksums."""
     seq32 = bool((arrays["seq_hi"][:count] == 0).all())
     full_words = plane_words(block_entries, klen, vlen, seq32)
-    writer = SSTWriter(path)
+    writer = SSTWriter(path, compression=compression,
+                       bits_per_key=bits_per_key)
     try:
         key_bytes = _key_bytes(arrays, count, klen)
         seqs = _seqs(arrays, count)
@@ -341,11 +342,12 @@ def _write_planar(arrays: Dict[str, np.ndarray], count: int, path: str,
                                           BLOCK_PLANAR_RLZ, BLOCK_PLANAR)
             writer.add_encoded_block(
                 payload, last_key=key_bytes[end - 1].tobytes(),
-                num_entries=end - start,
+                num_entries=end - start, keys=[],
                 min_key=key_bytes[start].tobytes(),
                 max_key=key_bytes[end - 1].tobytes(),
                 min_seq=int(seqs[start:end].min()),
-                max_seq=int(seqs[start:end].max()), codec=codec)
+                max_seq=int(seqs[start:end].max()), compressed=False,
+                codec=codec)
         return _finish(writer, bloom_words, key_bytes, bits_per_key, {
             "num_keys": int(count),
             "planar": planar_props(klen, vlen, seq32),
@@ -395,7 +397,8 @@ def write_sst_from_arrays(
     if widths is None:
         return None
     klen, vlen = widths
-    writer = SSTWriter(path)
+    writer = SSTWriter(path, compression=compression,
+                       bits_per_key=bits_per_key)
     try:
         key_bytes = _key_bytes(arrays, count, klen)
         seqs = _seqs(arrays, count)
@@ -406,11 +409,12 @@ def write_sst_from_arrays(
                                           COMPRESSION_RLZ, 0)
             writer.add_encoded_block(
                 payload, last_key=key_bytes[end - 1].tobytes(),
-                num_entries=end - start,
+                num_entries=end - start, keys=[],
                 min_key=key_bytes[start].tobytes(),
                 max_key=key_bytes[end - 1].tobytes(),
                 min_seq=int(seqs[start:end].min()),
-                max_seq=int(seqs[start:end].max()), codec=codec)
+                max_seq=int(seqs[start:end].max()), compressed=False,
+                codec=codec)
         # the uniform prop lets read_sst_arrays decode the file back
         return _finish(writer, bloom_words, key_bytes, bits_per_key, {
             "num_keys": int(count), "uniform": [int(klen), int(vlen)]})

@@ -5,8 +5,8 @@ library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, no ninja). Libraries go into ``rocksplicator_tpu_torch/_build/
 <digest>/``, keyed on a hash of every source and the compiler flags, so an
 edited source rebuilds and an unchanged one is loaded as built. Builds
-happen on first use, never at import; ``build_all`` starts one ``nvcc``
-per source, all at once.
+happen on first use, never at import, under a lock (``load``);
+``build_all`` starts one ``nvcc`` per source, all at once.
 
 Every C entry point returns a ``cudaError_t`` (0 on success), checked with
 ``cudaGetLastError`` after each launch inside, or a negative code for an
@@ -27,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -41,6 +42,10 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 CUDA_LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# first use happens on the engine's compaction threads and the batch
+# compactor's pool at once: one thread builds and loads, the others wait
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -49,9 +54,10 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, cuda_launches: Optional[int] = None) -> None:
-    LAUNCHES[name] += 1
-    if cuda_launches is not None:
-        CUDA_LAUNCHES[name] = cuda_launches
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if cuda_launches is not None:
+            CUDA_LAUNCHES[name] = cuda_launches
 
 
 def _digest() -> str:
@@ -114,18 +120,22 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if need be.
     ``signatures`` maps each C function to its ctypes argument types; every
-    function returns an int (a ``cudaError_t``)."""
+    function returns an int (a ``cudaError_t``). Locked, so threads that
+    first use a kernel together build it once."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        lib.rs_error_string.argtypes = [ctypes.c_int]
-        lib.rs_error_string.restype = ctypes.c_char_p
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                lib.rs_error_string.argtypes = [ctypes.c_int]
+                lib.rs_error_string.restype = ctypes.c_char_p
+                for fn, argtypes in signatures.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = list(argtypes)
+                    f.restype = ctypes.c_int
+                _LIBS[name] = lib
     return lib
 
 

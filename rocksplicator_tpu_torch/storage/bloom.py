@@ -5,7 +5,10 @@ little-endian u32 words) and the key length, then murmur3 fmix32; each key
 sets ``K_BITS`` bits of one 32-bit word chosen by the first hash.
 ``BloomFilter`` writes and reads the bitmap in the SST format, so a bitmap
 that kernel K3 built (ops/bloom.py) is written as the reference writes
-its own; ``BloomFilter.build`` is the host build from key bytes.
+its own; ``BloomFilter.build`` is the host build from key bytes, through
+the native library where it is loaded (the same bits), as in the
+reference. Probes: ``may_contain`` per key, ``may_contain_many`` and
+``may_contain_hashed`` over a key batch hashed once by ``hash_many``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,26 @@ K_BITS = 6
 _FNV_OFFSET = 2166136261
 _FNV_PRIME = 16777619
 _H2_MUL = 0x9E3779B1
+_MASK32 = 0xFFFFFFFF
+
+
+def key_words(key: bytes) -> List[int]:
+    """The 7 u32 lanes hashed for ``key`` (6 prefix words + length)."""
+    prefix = key[:PREFIX_BYTES].ljust(PREFIX_BYTES, b"\x00")
+    words = list(struct.unpack(f"<{_PREFIX_WORDS}I", prefix))
+    words.append(len(key) & _MASK32)
+    return words
+
+
+def _avalanche(h: int) -> int:
+    """murmur3 fmix32 on a Python int."""
+    h &= _MASK32
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _MASK32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _MASK32
+    h ^= h >> 16
+    return h
 
 
 def num_words_for(num_keys: int, bits_per_key: int = 10) -> int:
@@ -72,6 +95,32 @@ def hash_many(keys: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
     return hash_words(mat.view("<u4"), lens)
 
 
+def hash_pair(key: bytes) -> tuple:
+    h = _FNV_OFFSET
+    for w in key_words(key):
+        h = ((h ^ w) * _FNV_PRIME) & _MASK32
+    h1 = _avalanche(h)
+    h2 = _avalanche((h * _H2_MUL + 1) & _MASK32)
+    return h1, h2
+
+
+def word_mask(key: bytes, num_words: int) -> tuple:
+    """(word_index, 32-bit mask) for ``key``: each of the K bits comes
+    from an independent 5-bit slice of h2."""
+    h1, h2 = hash_pair(key)
+    mask = 0
+    for j in range(K_BITS):
+        mask |= 1 << ((h2 >> (5 * j)) & 31)
+    return h1 % num_words, mask
+
+
+def _native():
+    """The native hash/build path (the same bits)."""
+    from .native.binding import NATIVE
+
+    return NATIVE
+
+
 class BloomFilter:
     def __init__(self, num_words: int, words: np.ndarray | None = None):
         self.num_words = num_words
@@ -83,6 +132,10 @@ class BloomFilter:
               bits_per_key: int = 10) -> "BloomFilter":
         keys = list(keys)
         bf = cls(num_words_for(len(keys), bits_per_key))
+        native = _native()
+        if native is not None and keys:
+            native.bloom_add_many(bf.words, keys)
+            return bf
         h1, mask = hash_many(keys)
         np.bitwise_or.at(bf.words, h1 % np.uint32(bf.num_words), mask)
         return bf
@@ -97,9 +150,20 @@ class BloomFilter:
         bf = cls(num_words_for(n, bits_per_key))
         if n == 0:
             return bf
-        mat = np.asarray(key_bytes_matrix, dtype=np.uint8).reshape(n, -1)
-        lens = np.minimum(np.asarray(key_lens, dtype=np.uint64),
-                          np.uint64(mat.shape[1])).astype(np.uint32)
+        mat = np.ascontiguousarray(key_bytes_matrix,
+                                   dtype=np.uint8).reshape(n, -1)
+        lens64 = np.minimum(np.asarray(key_lens, dtype=np.uint64),
+                            np.uint64(mat.shape[1]))
+        native = _native()
+        if native is not None:
+            keep = (np.arange(mat.shape[1], dtype=np.uint64)[None, :]
+                    < lens64[:, None])
+            offsets = np.zeros(n + 1, dtype=np.uint64)
+            np.cumsum(lens64, out=offsets[1:])
+            # row-major: the keys stay in order in the buffer
+            native.bloom_add_concat(bf.words, mat[keep], offsets, n)
+            return bf
+        lens = lens64.astype(np.uint32)
         width = min(mat.shape[1], PREFIX_BYTES)
         prefix = np.zeros((n, PREFIX_BYTES), dtype=np.uint8)
         prefix[:, :width] = np.where(
@@ -108,6 +172,29 @@ class BloomFilter:
         h1, mask = hash_words(prefix.view("<u4"), lens)
         np.bitwise_or.at(bf.words, h1 % np.uint32(bf.num_words), mask)
         return bf
+
+    def add(self, key: bytes) -> None:
+        idx, mask = word_mask(key, self.num_words)
+        self.words[idx] |= np.uint32(mask)
+
+    def may_contain(self, key: bytes) -> bool:
+        # pure Python: per-probe ctypes marshalling costs more than the
+        # hash itself
+        idx, mask = word_mask(key, self.num_words)
+        return (int(self.words[idx]) & mask) == mask
+
+    def may_contain_many(self, keys: List[bytes]) -> np.ndarray:
+        """(n,) bool — the batch probe, bit-exact with ``may_contain``."""
+        h1, mask = hash_many(keys)
+        return self.may_contain_hashed(h1, mask)
+
+    def may_contain_hashed(self, h1: np.ndarray,
+                           mask: np.ndarray) -> np.ndarray:
+        """Probe with hashes from :func:`hash_many`: a multi-SST read
+        hashes its key set once and pays a modulo and a gather a filter."""
+        with np.errstate(over="ignore"):
+            idx = h1 % np.uint32(self.num_words)
+        return (self.words[idx] & mask) == mask
 
     def to_bytes(self) -> bytes:
         return struct.pack("<I", self.num_words) + self.words.astype(

@@ -1,6 +1,6 @@
-"""The heap-merge compaction path — counterpart of
+"""The compaction seam and the heap-merge path — counterpart of
 ``rocksplicator_tpu/storage/compaction.py`` (``Entry``,
-``CpuCompactionBackend.merge_runs``, ``resolve_stream``).
+``CompactionBackend``, ``CpuCompactionBackend``, ``resolve_stream``).
 
 A run is an iterable of (key, seq, vtype, value) in (key asc, seq desc)
 order; the merged stream keeps one resolved entry per key
@@ -18,16 +18,53 @@ from .merge import resolve_entry_group
 Entry = Tuple[bytes, int, int, bytes]  # key, seq, vtype, value
 
 
-class CpuCompactionBackend:
-    """Heap-based k-way merge. ``merge_op`` is any object with ``merge``
-    and ``partial_merge`` (the engine passes its own operators)."""
+class CompactionBackend:
+    """The engine's backend seam. The engine finds the optional parts by
+    duck typing: ``merge_runs_to_files`` (a direct file sink),
+    ``supports_subcompactions`` (it takes ``max_subcompactions`` and
+    ``io_budget``) and ``supports_memory_budget`` (``mem_tracker`` and
+    ``memory_budget_bytes``)."""
+
+    name = "base"
+    supports_subcompactions = False
+    supports_memory_budget = False
+
+    def merge_runs(self, runs: List[Iterable[Entry]], merge_op,
+                   drop_tombstones: bool) -> Iterator[Entry]:
+        raise NotImplementedError
+
+
+class CpuCompactionBackend(CompactionBackend):
+    """Heap-based k-way merge, and the direct array sink
+    (``merge_runs_to_files``) shared with the native backend. ``merge_op``
+    is any object with ``merge`` and ``partial_merge``."""
 
     name = "cpu"
+    supports_subcompactions = True
+    supports_memory_budget = True
 
     def merge_runs(self, runs: List[Iterable[Entry]], merge_op,
                    drop_tombstones: bool) -> Iterator[Entry]:
         merged = heapq.merge(*runs, key=lambda e: (e[0], -e[1]))
         return resolve_stream(merged, merge_op, drop_tombstones)
+
+    def merge_runs_to_files(self, runs: List, merge_op,
+                            drop_tombstones: bool, path_factory,
+                            block_bytes: int, compression: int,
+                            bits_per_key: int, target_file_bytes: int,
+                            max_subcompactions: int = 1, io_budget=None,
+                            mem_tracker=None, memory_budget_bytes: int = 0):
+        """[(path, props)], [] for an all-tombstoned result, or None →
+        the engine's tuple path
+        (``storage/native_compaction.direct_merge_runs_to_files``)."""
+        from .native_compaction import direct_merge_runs_to_files
+
+        return direct_merge_runs_to_files(
+            runs, merge_op, drop_tombstones, path_factory, block_bytes,
+            compression, bits_per_key, target_file_bytes,
+            max_subcompactions=max_subcompactions, io_budget=io_budget,
+            mem_tracker=mem_tracker,
+            memory_budget_bytes=memory_budget_bytes)
 
 
 def resolve_stream(merged: Iterable[Entry], merge_op,

@@ -1,8 +1,12 @@
-"""Storage errors — counterpart of ``rocksplicator_tpu/storage/errors.py``
-(the two the SST reader and writer raise)."""
+"""Storage engine error taxonomy — counterpart of
+``rocksplicator_tpu/storage/errors.py``."""
 
 
 class StorageError(Exception):
+    pass
+
+
+class NotFoundError(StorageError):
     pass
 
 

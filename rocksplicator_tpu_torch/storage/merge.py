@@ -83,6 +83,11 @@ class UInt64AddOperator(MergeOperator):
         return self.merge(key, None, operands)
 
 
+MERGE_OPERATORS = {
+    UInt64AddOperator.name: UInt64AddOperator,
+}
+
+
 def resolve_entry_group(
     group: List[Tuple[bytes, int, int, bytes]],
     merge_op,

@@ -1,6 +1,11 @@
-"""RLZ1 block codec — counterpart of ``rocksplicator_tpu/storage/rlz.py``
-(its pure-Python codec; the reference's native codec writes the same
-bytes).
+"""RLZ1 block codec — counterpart of ``rocksplicator_tpu/storage/rlz.py``.
+
+As there, the native library's codec (``storage/native``,
+``rlz_compress``/``rlz_decompress``) is the path wherever it is loaded,
+and this file holds the format and the pure-Python fallback. The two
+encoders write different, equally valid bytes where the native hashed
+gram table collides (the Python one keeps an exact dict); each decodes
+the other's output.
 
 Format (little-endian)::
 
@@ -10,6 +15,9 @@ Format (little-endian)::
       0x80|L, u16 dist    match: copy L+4 bytes (4..131) starting <dist>
                           bytes back in the OUTPUT (1..65535); may overlap
                           itself (run encoding), copied front-to-back
+
+Worst case (incompressible input): 4 + n + ceil(n/127) bytes — callers
+size buffers with :func:`max_compressed_len`.
 """
 
 from __future__ import annotations
@@ -17,6 +25,10 @@ from __future__ import annotations
 _MIN_MATCH = 4
 _MAX_MATCH = 131
 _MAX_DIST = 65535
+
+
+def max_compressed_len(n: int) -> int:
+    return 4 + n + (n + 126) // 127 + 3
 
 
 def _literals(out: bytearray, data: bytes, start: int, end: int) -> None:
@@ -27,7 +39,7 @@ def _literals(out: bytearray, data: bytes, start: int, end: int) -> None:
         start += take
 
 
-def compress(data: bytes) -> bytes:
+def _py_compress(data: bytes) -> bytes:
     """Greedy LZ77 with a depth-1 table of 4-byte grams."""
     n = len(data)
     if n > 0xFFFFFFFF:
@@ -60,7 +72,7 @@ def compress(data: bytes) -> bytes:
     return bytes(out)
 
 
-def decompress(data: bytes, max_out: int) -> bytes:
+def _py_decompress(data: bytes, max_out: int) -> bytes:
     """Bounded decode: raises ValueError if the declared output exceeds
     ``max_out`` or the stream is malformed."""
     if len(data) < 4:
@@ -98,3 +110,37 @@ def decompress(data: bytes, max_out: int) -> bytes:
             out += data[r:r + tag]
             r += tag
     return bytes(out)
+
+
+def _native():
+    from .native.binding import get_native
+
+    lib = get_native()
+    if lib is not None and lib.has_rlz:
+        return lib
+    return None
+
+
+def compress(data: bytes) -> bytes:
+    if len(data) > 0xFFFFFFFF:
+        raise ValueError("rlz: input exceeds the u32 raw_len field")
+    lib = _native()
+    if lib is not None:
+        return lib.rlz_compress(data)
+    return _py_compress(data)
+
+
+def decompress(data: bytes, max_out: int) -> bytes:
+    """Bounded decode: raises ValueError if the declared output exceeds
+    ``max_out`` (zip-bomb guard) or the stream is malformed."""
+    lib = _native()
+    if lib is not None:
+        out = lib.rlz_decompress(data, max_out)
+        if out is None:
+            raise ValueError("rlz: malformed stream (native)")
+        return out
+    return _py_decompress(data, max_out)
+
+
+def native_available() -> bool:
+    return _native() is not None

@@ -322,7 +322,8 @@ class _RunCursor:
 
 
 class CpuChunkResolver:
-    """The host merge-resolve, run synchronously: one chunk in flight at a
+    """The host merge-resolve (the native library's where it is loaded,
+    numpy's otherwise), run synchronously: one chunk in flight at a
     time (``pipelined = False``: the pipeline collects each chunk at once,
     so consumed windows release before the next refill)."""
 
@@ -331,9 +332,10 @@ class CpuChunkResolver:
 
     def submit(self, parts: List[dict], lanes: dict, total: int, vw: int,
                merge_op, drop_tombstones: bool):
-        from .native_compaction import cpu_chunk_resolve
+        from .native_compaction import NativeCompactionBackend
 
-        return cpu_chunk_resolve(lanes, total, vw, merge_op, drop_tombstones)
+        return NativeCompactionBackend._resolve(
+            parts, lanes, total, vw, merge_op, drop_tombstones)
 
     def collect(self, handle) -> Tuple[dict, int]:
         return handle

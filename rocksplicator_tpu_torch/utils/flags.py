@@ -4,13 +4,14 @@ a process-wide override (``FLAGS.set``, ``FLAGS.reset``), and the
 ``RSTPU_FLAG_<NAME>`` environment variable, which, as in the JAX package,
 is read once: when the flag is defined, at the import of the module that
 defines it. The port defines ``sort_backend`` in
-``ops/compaction_kernel.py``.
+``ops/compaction_kernel.py``. ``_coerce`` is the JAX package's value
+coercion, which the storage engine's ``set_options`` uses.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 
 class FlagRegistry:
@@ -37,6 +38,20 @@ class FlagRegistry:
     def reset(self, name: Optional[str] = None) -> None:
         for n in [name] if name else list(self._defaults):
             self._values[n] = self._defaults[n]
+
+
+def _coerce(value: Any, typ: type) -> Any:
+    """``value`` as ``typ``: "false"/"0"/"no"/"off" are False for a bool,
+    and a bool is not passed through for an int (the engine's
+    ``set_options`` coerces with it)."""
+    if isinstance(value, typ) and not (typ is not bool
+                                       and isinstance(value, bool)):
+        return value
+    if typ is bool:
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    return typ(value)
 
 
 FLAGS = FlagRegistry()

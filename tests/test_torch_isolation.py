@@ -1,9 +1,10 @@
 """The port imports neither JAX nor the JAX package, and its entry points
 do not quietly run on the CPU when CUDA is missing; its engine seam
 (``gpu/``, ``storage/``) compacts into a file, its batched service
-compacts shards, and its post-ingest BatchCompactor compacts stub DBs
-past an armed failpoint, on the CPU with both blocked, counting into the
-port's own Stats.
+compacts shards, its post-ingest BatchCompactor compacts stub DBs past
+an armed failpoint, and its storage engine opens, writes, flushes,
+compacts and reopens a DB with the host and the card's backends, on the
+CPU with both blocked, counting into the port's own Stats.
 
 The import check runs in a subprocess, because this test process has
 imported JAX already (tests/conftest.py)."""
@@ -50,7 +51,10 @@ seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
         "utils.flags", "utils.stats", "observability",
         "observability.context", "observability.span",
         "observability.collector", "testing", "testing.failpoints",
-        "testing.failpoint_registry", "admin", "admin.ingest_pipeline"}
+        "testing.failpoint_registry", "admin", "admin.ingest_pipeline",
+        "storage.records", "storage.memtable", "storage.wal",
+        "storage.engine", "storage.native", "storage.native.binding",
+        "utils.misc"}
 missing = {m for m in seam if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 print("IMPORTED", len(names))
@@ -155,6 +159,45 @@ with tempfile.TemporaryDirectory() as d:
 gate = IngestGate(1)
 assert gate.try_enter() and not gate.try_enter()
 print("BATCH_COMPACTOR_ON_CPU")
+
+# the storage engine: a DB opens, writes, flushes, compacts, closes and
+# reopens with the host's backend and with the card's on the CPU; with no
+# backend it compacts on the card, so it refuses to open without CUDA
+from rocksplicator_tpu_torch.storage import DB, DBOptions, WriteBatch
+from rocksplicator_tpu_torch.storage.native_compaction import (
+    NativeCompactionBackend)
+for make in (NativeCompactionBackend, lambda: GpuCompactionBackend("cpu")):
+    with tempfile.TemporaryDirectory() as d:
+        def opened():
+            return DB(d, DBOptions(merge_operator=UInt64AddOperator(),
+                                   compaction_backend=make(),
+                                   memtable_bytes=2048,
+                                   level0_compaction_trigger=2))
+        db = opened()
+        for r in range(3):
+            batch = WriteBatch()
+            for i in range(40):
+                batch.merge(b"counter:%08d" % i, pk(r + 1))
+            db.write(batch)
+            db.flush()
+        db.delete(b"counter:%08d" % 0)
+        db.compact_range()
+        db.put(b"counter:%08d" % 1, pk(9))
+        db.close()
+        db = opened()
+        got = db.multi_get([b"counter:%08d" % i for i in range(40)])
+        assert got == [None, pk(9)] + [pk(6)] * 38, got[:3]
+        assert db.get_property("num-files-at-level6") == "1"
+        db.close()
+with tempfile.TemporaryDirectory() as d:
+    try:
+        DB(d)
+    except RuntimeError as exc:
+        assert "CUDA is not available" in str(exc), exc
+    else:
+        raise AssertionError("a DB compacting on the card opened without "
+                             "CUDA")
+print("ENGINE_ON_CPU")
 rc = chip_smoke.main()
 assert rc != 0, rc
 print("SMOKE_REFUSES", rc)
@@ -178,6 +221,7 @@ def test_port_imports_without_jax_and_refuses_cpu_fallback():
     assert "SEAM_ON_CPU" in res.stdout
     assert "BATCH_ON_CPU" in res.stdout
     assert "BATCH_COMPACTOR_ON_CPU" in res.stdout
+    assert "ENGINE_ON_CPU" in res.stdout
     assert "SMOKE_REFUSES" in res.stdout
     assert '"ok"' not in res.stdout
 
@@ -208,17 +252,18 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 
 def test_port_failpoint_sites_are_registered():
-    """The registry pass of ``tools/rstpu_check.py`` over the port: every
-    fp.hit site names a registered failpoint with a literal name, every
-    span is a ``with start_span``, every counter name follows the
-    grammar. The registry is the JAX package's whole, so the entries whose
-    seams live in layers the port has not taken over yet (WAL, RPC,
+    """Every pass of ``tools/rstpu_check.py`` over the port (lock
+    discipline, loops, the registry): every fp.hit site names a
+    registered failpoint with a literal name, every span is a ``with
+    start_span``, every counter name follows the grammar, and every
+    ``allow()`` pragma the engine carries from the JAX package suppresses
+    a finding. The registry is the JAX package's whole, so the entries
+    whose seams live in layers the port has not taken over yet (RPC,
     replication, ...) have no call site here: those, and only those, are
     reported as dead entries."""
     from rocksplicator_tpu_torch.testing.failpoint_registry import REGISTRY
 
-    findings, _suppressed, _lock = run_checks(
-        str(PACKAGE), root=str(REPO), passes=("registry",))
+    findings, _suppressed, _lock = run_checks(str(PACKAGE), root=str(REPO))
     rules = {}
     for f in findings:
         rules.setdefault(f.rule, []).append(f)
@@ -228,5 +273,10 @@ def test_port_failpoint_sites_are_registered():
     dead = {f.message.split("'")[1] for f in rules.get(
         "failpoint-dead-entry", [])}
     ported = {"compact.dispatch", "compact.subcompact",
-              "compact.stream.chunk", "compact.stream.refill"}
+              "compact.stream.chunk", "compact.stream.refill",
+              # the storage engine (WAL, SST writer, manifest, ingest,
+              # compaction install, the scheduler's pick and yield)
+              "wal.append", "wal.fsync", "wal.roll", "sst.fsync",
+              "manifest.persist", "engine.ingest", "sst.ingest_footer",
+              "compact.install", "compact.pick", "compact.yield"}
     assert dead == set(REGISTRY) - ported

@@ -3,11 +3,12 @@ written by both give the same file bytes, the port reads the reference's
 files back into the same lanes, and the codecs (RLZ1, the bloom bitmap)
 give the same bytes. Tolerance 0.
 
-The port's RLZ1 encoder is the reference's pure-Python one. The
-reference's native encoder finds matches through a hashed table, so where
-two 4-byte grams share a slot it writes other (equally valid) bytes; the
-RLZ comparisons pin the reference to its Python codec, and check that
-each package decodes the other's output."""
+Both packages' RLZ1 encoders take the native codec where the native
+library is loaded and their pure-Python one otherwise. The native encoder
+finds matches through a hashed table, so where two 4-byte grams share a
+slot it writes other (equally valid) bytes than the Python one; the RLZ
+comparisons hold each route to the same route of the reference, and
+check that each package decodes the other's output."""
 
 import os
 import struct
@@ -76,9 +77,7 @@ def _k3_bitmap(arrays, n):
 @pytest.mark.parametrize("compression", sorted(COMPRESSIONS))
 @pytest.mark.parametrize("planar", [True, False])
 def test_write_sst_from_arrays_matches_reference(planar, compression, seq64,
-                                                 bloom_from, tmp_path,
-                                                 monkeypatch):
-    monkeypatch.setattr(jax_rlz, "_native", lambda: None)
+                                                 bloom_from, tmp_path):
     arrays, n = _lanes(seed=1, seq64=seq64, deletes=planar)
     kw = dict(block_entries=1024, compression=COMPRESSIONS[compression],
               bits_per_key=10, planar=planar)
@@ -186,14 +185,18 @@ def _codec_inputs():
 
 
 def test_rlz_matches_reference(monkeypatch):
+    assert rlz.native_available() == jax_rlz.native_available()
     for data in _codec_inputs():
         comp = rlz.compress(data)
-        assert comp == jax_rlz._py_compress(data)
+        # the same route: native where loaded, in both packages
+        assert comp == jax_rlz.compress(data)
+        assert rlz._py_compress(data) == jax_rlz._py_compress(data)
         assert rlz.decompress(comp, len(data)) == data
-        # with or without the reference's native codec loaded
         assert jax_rlz.decompress(comp, len(data)) == data
-        assert rlz.decompress(jax_rlz.compress(data), len(data)) == data
+        assert rlz.decompress(jax_rlz._py_compress(data), len(data)) == data
+        assert rlz._py_decompress(comp, len(data)) == data
     monkeypatch.setattr(jax_rlz, "_native", lambda: None)
+    monkeypatch.setattr(rlz, "_native", lambda: None)
     for data in _codec_inputs():
         assert rlz.compress(data) == jax_rlz.compress(data)
     with pytest.raises(ValueError):

@@ -58,19 +58,21 @@ def counters(stats_module, names=G1_COUNTERS) -> dict:
     return {n: st.get_counter(n) for n in names}
 
 
-def span_shape(collector_module, prefixes=("",)) -> dict:
+def span_shape(collector_module, prefixes=("",), timed=()) -> dict:
     """One package's kept spans whose names start with one of
     ``prefixes``, as a multiset: (name, parent's name, sorted
     annotations, error class) -> count; a parent outside the selected
-    spans counts as none. Ids and times are left out, so two packages'
-    traces of the same job compare equal."""
+    spans counts as none. Ids and times are left out, annotations named
+    in ``timed`` (host-clock durations) too, so two packages' traces of
+    the same job compare equal."""
     spans = [s for s in collector_module.SpanCollector.get().snapshot()
              if s["name"].startswith(tuple(prefixes))]
     names = {s["span_id"]: s["name"] for s in spans}
     shape: dict = {}
     for s in spans:
         key = (s["name"], names.get(s["parent_id"]),
-               tuple(sorted(s["annotations"].items())),
+               tuple(sorted((k, v) for k, v in s["annotations"].items()
+                            if k not in timed)),
                (s["error"] or "").split("(")[0])
         shape[key] = shape.get(key, 0) + 1
     return shape
