@@ -64,15 +64,17 @@ PyTorch built for CUDA. It
    port's admin logger);
 4f. drives the port's storage engine, ``storage.DB``, in the
    environment's stream mode: the counter traffic (4 x 2^20 ops in
-   WriteBatches of 1024) through ``DB.write`` into two DBs that compact on
-   the card (fused and bitonic) and one on the host
-   (``NativeCompactionBackend``), each run's last batch flushing 2^20
+   WriteBatches of 1024) through ``DB.write`` into a DB that compacts on
+   the card (fused) and one on the host (``NativeCompactionBackend``), and
+   run 4 into a third, on the card (bitonic), opened from the host DB's
+   checkpoint after run 3, each run's last batch flushing 2^20
    entries and the fourth flush compacting L0 inline, then
    ``compact_range`` (``engine_db``: files byte for byte against the
    host DB's, one K2 (K1) call a compaction and one K3 call a file, every
    key of the fused DB read back through ``multi_get`` and a full scan
    against a numpy oracle, the native library loaded, host-clock seconds
-   of each write run, flush and compaction); the same traffic from 4
+   of each write run, flush and compaction); the same traffic at half
+   the depth (4 x 2^19 ops, under half the default memory budget) from 4
    writer threads into a DB with background flush and compaction and its
    default backend, the card (``engine_db_background``: K2 launched from
    the compaction thread before ``compact_range``, no background failure,
@@ -102,6 +104,25 @@ PyTorch built for CUDA. It
    (``k3_sweep``, each against the plain version); the batched shapes and
    W = 16; and profiles the batched bench forward and the 8 single-shard
    forwards it replaces.
+
+4g. drives the remote compaction tier with the card as its worker: a
+   port coordinator, a port ``CompactionWorker`` on
+   ``GpuCompactionBackend(device=cuda)`` in a thread, and host leaders
+   (port DBs on ``NativeCompactionBackend``) holding the counter traffic
+   (``remote_worker``: job A, the leader's own L0 pick at the trigger over
+   a local store under a 1 GiB budget, in RAM: one K2 call and one K3
+   call a file; job B, ``maybe_offload`` over the port's S3 stub under
+   the default 256 MiB budget, streamed: one K2 call a chunk and no K3;
+   each installed generation sha256-identical to the same data compacted
+   by ``compact_range`` on a host DB under the same budget, every key of
+   A and a sample of B read back against the numpy oracle, one claim a
+   job, no failover, reap or local compaction, every launch from the
+   worker's thread, the ledger and objects swept; host-clock seconds by
+   stage and bytes moved); and the worker CLI as its own process
+   (``remote_worker_cli``: ``python -m
+   rocksplicator_tpu_torch.tools.compaction_worker --backend gpu --once``
+   over 4 runs of 2^18 entries: exit 0, the job installed, files equal
+   to the host's, its own launch counts);
 
 Every phase raises on failure and the script then exits non-zero. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -146,7 +167,15 @@ WIDE_RUN_ENTRIES = 1 << 18
 K3_FILE_ROWS = 1 << 21
 
 
+_STARTED = time.time()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the host-clock seconds
+    since the script started (``elapsed_s``), so a run shows where its
+    time went."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.time() - _STARTED, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1353,14 +1382,20 @@ def batch_compactor(dev, prepared: tuple, card: str) -> tuple:
 # WriteBatches of ENGINE_BATCH ops, one memtable flush a run; four flushes
 # fill one launch (MAX_TPU_ENTRIES)
 ENGINE_RUN_ENTRIES = 1 << 20
+# engine_db_background's runs: half the depth, to keep the command's time,
+# under half the default 256 MiB compaction budget, so that its
+# compactions stream as they do at full depth under the default
+ENGINE_BG_RUN_ENTRIES = ENGINE_RUN_ENTRIES // 2
+ENGINE_BG_BUDGET_BYTES = 128 << 20
 ENGINE_BATCH = 1024
 ENGINE_WRITERS = 4
 # multi_get read-back in slices of this many keys
 ENGINE_READ_SLICE = 1 << 16
 
 
-def engine_traffic(seed: int = 700) -> dict:
-    """The counter service's traffic of ``counter_runs`` as DB operations:
+def engine_traffic(seed: int = 700, run_entries: int = 0) -> dict:
+    """The counter service's traffic of ``counter_runs`` as DB operations,
+    4 runs of ``run_entries`` (default ENGINE_RUN_ENTRIES) each:
     per run, 16-byte keys ("counter:" + a big-endian id), the op type
     (3 MERGE, 1 PUT, 2 DELETE) and 8-byte little-endian values, each run
     in a seeded random order; the memtable_bytes at which the engine
@@ -1368,15 +1403,16 @@ def engine_traffic(seed: int = 700) -> dict:
     touched key's final value."""
     import numpy as np
 
-    key_space = 2 * ENGINE_RUN_ENTRIES
-    runs = counter_runs(4, ENGINE_RUN_ENTRIES, key_space, seed)
+    run_entries = run_entries or ENGINE_RUN_ENTRIES
+    key_space = 2 * run_entries
+    runs = counter_runs(4, run_entries, key_space, seed)
     rng = np.random.default_rng(seed + 1)
     ops = []
     exists = np.zeros(key_space, dtype=bool)
     touched = np.zeros(key_space, dtype=bool)
     value = np.zeros(key_space, dtype=np.uint64)
     for lanes in runs:
-        order = rng.permutation(ENGINE_RUN_ENTRIES)
+        order = rng.permutation(run_entries)
         kw = lanes["key_words_be"][order]
         ids = ((kw[:, 2].astype(np.uint64) << np.uint64(32))
                | kw[:, 3].astype(np.uint64))
@@ -1406,6 +1442,7 @@ def engine_traffic(seed: int = 700) -> dict:
         raise AssertionError("engine traffic: no memtable size flushes "
                              "once a run")
     return {"ops": ops, "memtable_bytes": memtable_bytes,
+            "run_entries": run_entries,
             "touched": np.flatnonzero(touched).astype(np.uint64),
             "exists": exists, "value": value}
 
@@ -1448,10 +1485,12 @@ def _write_ops(db, ids, vtype, vals, key_bytes, rows, latencies=None):
             latencies.append(time.perf_counter() - t0)
 
 
-def check_read_back(db, traffic: dict, what: str, ids=None) -> dict:
+def check_read_back(db, traffic: dict, what: str, ids=None,
+                    scan: bool = True) -> dict:
     """Every touched key (or those of ``ids``) read back through multi_get
-    equals the oracle, and one full iterator scan yields exactly the live
-    keys and values, in order. Returns host-clock seconds."""
+    equals the oracle, and (``scan``) one full iterator scan yields
+    exactly the live keys and values, in order. Returns host-clock
+    seconds."""
     import numpy as np
 
     ids = traffic["touched"] if ids is None else ids
@@ -1468,6 +1507,8 @@ def check_read_back(db, traffic: dict, what: str, ids=None) -> dict:
             raise AssertionError(f"{what}: key {int(part[bad])} reads "
                                  f"{got[bad]!r}, want {want[bad]!r}")
     t1 = time.time()
+    if not scan:
+        return {"multi_get_s": t1 - t0, "keys_read": int(len(ids))}
     live = ids[exists[ids]]
     live.sort()
     n = 0
@@ -1542,12 +1583,16 @@ def _timed_db(db, backend, log: list) -> None:
     db._write_mem_sst, db._compact_level0_locked = flush, compact
 
 
-def engine_db(dev, traffic: dict, work_dir: str, card: str) -> tuple:
+def engine_db(dev, traffic: dict, work_dir: str, card: str,
+              run3_checkpoint: str = "") -> tuple:
     """The port's DB at MAX_TPU_ENTRIES: the counter traffic written
-    through DB.write into two DBs that compact on the card (under the
-    fused and the bitonic sort backends: K2, or K1 and the torch
-    resolve) and one that compacts on the host (the port's
-    NativeCompactionBackend), DBOptions' defaults otherwise (32 KiB blocks, zlib, 10 bits a key, 64 MiB files),
+    through DB.write into a DB that compacts on the card under the fused
+    sort backend (K2) and one that compacts on the host (the port's
+    NativeCompactionBackend); a third DB, on the card under the bitonic
+    sort backend (K1 and the torch resolve), starts from the host DB's
+    checkpoint after its third run and takes run 4's writes, so it
+    compacts the same 2^22 entries without writing runs 1-3 again.
+    DBOptions' defaults otherwise (32 KiB blocks, zlib, 10 bits a key, 64 MiB files),
     UInt64AddOperator, level0_compaction_trigger 4, inline flushes and
     compactions. Each run's last batch flushes 2^20 entries; the fourth
     flush compacts L0 into L1 (2^22 entries), then compact_range()
@@ -1556,7 +1601,10 @@ def engine_db(dev, traffic: dict, work_dir: str, card: str) -> tuple:
     memory budget 1 GiB (the in-RAM route: one K2 call a compaction).
     Each card DB's files must be byte-identical to the host DB's, K2 (K1)
     run once a compaction and K3 once an output file, and every key of
-    the fused card DB read back equal to the oracle."""
+    the fused card DB read back equal to the oracle. With
+    ``run3_checkpoint``, the host DB is checkpointed there after its third
+    run (three L0 files; the memtable is empty after a run's last batch,
+    so the checkpoint adds no flush), for ``remote_worker``."""
     import os
 
     import torch
@@ -1572,12 +1620,15 @@ def engine_db(dev, traffic: dict, work_dir: str, card: str) -> tuple:
     report = {"card": card, "ops": 4 * ENGINE_RUN_ENTRIES,
               "memtable_bytes": traffic["memtable_bytes"], "dbs": {}}
     launches = {}
-    paths = {}
+    paths = {name: os.path.join(work_dir, f"engine_{name}")
+             for name in ("fused", "host", "bitonic")}
     for name, backend in (("fused", GpuCompactionBackend(device=dev)),
-                          ("bitonic", GpuCompactionBackend(device=dev)),
-                          ("host", NativeCompactionBackend())):
+                          ("host", NativeCompactionBackend()),
+                          ("bitonic", GpuCompactionBackend(device=dev))):
         _sort_flag(SEAM_FLAGS.get(name))
-        path = paths[name] = os.path.join(work_dir, f"engine_{name}")
+        path = paths[name]
+        # the bitonic DB opens the host DB's checkpoint after run 3
+        first_run = 3 if name == "bitonic" else 0
         db = DB(path, DBOptions(
             merge_operator=UInt64AddOperator(), compaction_backend=backend,
             level0_compaction_trigger=4,
@@ -1589,11 +1640,16 @@ def engine_db(dev, traffic: dict, work_dir: str, card: str) -> tuple:
             torch.cuda.synchronize()
             _build.reset_launches()
             write_s = []
-            for ids, vtype, vals, key_bytes in traffic["ops"]:
+            for r, (ids, vtype, vals, key_bytes) in enumerate(
+                    traffic["ops"][first_run:], first_run):
                 t0 = time.time()
                 _write_ops(db, ids, vtype, vals, key_bytes,
                            range(len(ids)))
                 write_s.append(time.time() - t0)
+                if name == "host" and r == 2:
+                    db.checkpoint(paths["bitonic"])
+                    if run3_checkpoint:
+                        db.checkpoint(run3_checkpoint)
             l0 = dict(_build.LAUNCHES)
             before = dict(_build.LAUNCHES)
             t0 = time.time()
@@ -1608,7 +1664,8 @@ def engine_db(dev, traffic: dict, work_dir: str, card: str) -> tuple:
             launches[name] = dict(_build.LAUNCHES)
             flushes = [e for e in log if e["what"] == "flush"]
             compactions = [e for e in log if e["what"] != "flush"]
-            if [e["entries"] for e in flushes] != [ENGINE_RUN_ENTRIES] * 4:
+            if [e["entries"] for e in flushes] \
+                    != [ENGINE_RUN_ENTRIES] * (4 - first_run):
                 raise AssertionError(f"engine db {name}: flushes {flushes}")
             if [e["what"] for e in compactions] != ["l0_compaction",
                                                     "compact_range"]:
@@ -1649,9 +1706,11 @@ def engine_db(dev, traffic: dict, work_dir: str, card: str) -> tuple:
 
 def engine_db_background(dev, traffic: dict, work_dir: str,
                          card: str) -> tuple:
-    """The same traffic from ENGINE_WRITERS threads on disjoint key ranges
-    into one DB with background flush and compaction threads, the
-    scheduler on and the default backend (the card). Then flush(), wait
+    """The counter traffic (``traffic``: 4 runs of ENGINE_BG_RUN_ENTRIES,
+    half engine_db's depth, under ENGINE_BG_BUDGET_BYTES, half the default
+    budget) from ENGINE_WRITERS threads on disjoint key ranges into one
+    DB with background flush and compaction threads, the scheduler on and
+    the default backend (the card). Then flush(), wait
     for the compaction thread to go idle, and compact_range(). Every
     acknowledged write reads back equal to the oracle, no background job
     failed, and the compaction thread launched K2 before compact_range."""
@@ -1670,7 +1729,8 @@ def engine_db_background(dev, traffic: dict, work_dir: str,
         merge_operator=UInt64AddOperator(), level0_compaction_trigger=4,
         compaction_backend=_card_backend(dev),
         memtable_bytes=traffic["memtable_bytes"],
-        background_compaction=True, compaction_scheduler=True))
+        background_compaction=True, compaction_scheduler=True,
+        compaction_memory_budget_bytes=ENGINE_BG_BUDGET_BYTES))
     threads_of = []
     count_launch = _build.count_launch
 
@@ -1678,7 +1738,7 @@ def engine_db_background(dev, traffic: dict, work_dir: str,
         threads_of.append((name, threading.current_thread().name))
         count_launch(name, cuda_launches)
 
-    key_space = 2 * ENGINE_RUN_ENTRIES
+    key_space = 2 * traffic["run_entries"]
     latencies = [[] for _ in range(ENGINE_WRITERS)]
     failed = []
 
@@ -1742,7 +1802,7 @@ def engine_db_background(dev, traffic: dict, work_dir: str,
         raise AssertionError(f"engine db background: failures {failures}")
     lat = sorted(x for per in latencies for x in per)
     return {"card": card, "writers": ENGINE_WRITERS,
-            "ops": 4 * ENGINE_RUN_ENTRIES, "write_s": write_s,
+            "ops": 4 * traffic["run_entries"], "write_s": write_s,
             "flush_s": flush_s, "wait_idle_s": idle_s,
             "compact_range_s": compact_s, "read_back": read,
             "writes": len(lat),
@@ -1869,7 +1929,472 @@ def engine_db_ingest(dev, prepared: tuple, work_dir: str, card: str) -> tuple:
             "launches": launches}, launches
 
 
+# ---- the remote compaction tier: the card as the worker ---------------
+
+REMOTE_WORKER_THREAD = "remote-worker"
+
+
+def _generation(db) -> list:
+    """sha256 of a DB's live files, in level order."""
+    import hashlib
+    import os
+
+    return [hashlib.sha256(open(os.path.join(db.path, name), "rb").read())
+            .hexdigest() for level in db._levels for name in level]
+
+
+def _remote_counters(stats_mod, dbs) -> dict:
+    """The port's ``compaction.remote.*`` counters of ``dbs``."""
+    st = stats_mod.Stats.get()
+    st.flush()
+    out = {}
+    for name in ("published", "claimed", "installed", "failed_over",
+                 "fenced", "reaped", "stale"):
+        out[name] = {db: st.get_counter(stats_mod.tagged(
+            f"compaction.remote.{name}", db=db)) for db in dbs}
+    out["worker_done"] = st.get_counter(stats_mod.tagged(
+        "compaction.remote.worker_done", worker=REMOTE_WORKER_THREAD))
+    return out
+
+
+class _Timed:
+    """Records a leader's offloads: each ``maybe_offload`` (the pick's
+    kind, its outcome, host-clock seconds) and the seconds of its publish
+    and its verify + install."""
+
+    def __init__(self, mgr):
+        self.offloads, self.publish_s, self.install_s = [], [], []
+        for attr, log in (("_publish", self.publish_s),
+                          ("_install", self.install_s)):
+            setattr(mgr, attr, self._timed(getattr(mgr, attr), log))
+        offload = mgr.maybe_offload
+
+        def maybe_offload(pick):
+            t0 = time.time()
+            outcome = offload(pick)
+            self.offloads.append((getattr(pick, "kind", None), outcome,
+                                  time.time() - t0))
+            return outcome
+
+        mgr.maybe_offload = maybe_offload
+
+    @staticmethod
+    def _timed(fn, log):
+        def call(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                log.append(time.time() - t0)
+        return call
+
+
+def _job_report(timed: _Timed, worker_job: dict, launches: dict) -> dict:
+    """One offloaded job's host-clock seconds by stage, bytes and kernel
+    launches."""
+    kind, outcome, total = timed.offloads[-1]
+    return {"pick": kind, "outcome": outcome, "total_s": total,
+            "publish_s": timed.publish_s[-1],
+            "publish_to_claim_s": worker_job["claim_after_publish"],
+            "fetch_s": worker_job["fetch"], "merge_s": worker_job["merge"],
+            "merge_stages_s": worker_job["backend_stages"],
+            "upload_s": worker_job["upload"],
+            "verify_install_s": timed.install_s[-1],
+            "bytes_fetched": worker_job["bytes_fetched"],
+            "bytes_uploaded": worker_job["bytes_uploaded"],
+            "launches": launches}
+
+
+def remote_worker(dev, traffic: dict, base3: str, work_dir: str,
+                  card: str) -> tuple:
+    """The remote compaction tier with the card as its worker: a port
+    CoordinatorServer, a port CompactionWorker on GpuCompactionBackend(
+    device=cuda) (fused sort backend) serving in a thread, and leaders
+    that are port DBs on the host (NativeCompactionBackend, engine_db's
+    options), each with a RemoteCompactionManager. The counter traffic's
+    runs 1-3 come from ``base3`` (engine_db's host DB checkpointed after
+    its third run, a flush a run); run 4 is written into it with
+    compaction off, and the states are copied with checkpoint.
+
+    Job A (local store, leader budget 1 GiB): a leader holding runs 1-3
+    with background compaction (the legacy L0 trigger, 4) takes run 4's
+    writes; its own L0 pick reaches maybe_offload, and the worker merges
+    the 2^22 entries in RAM: one K2 call and one K3 call a file. Job B
+    (the port's S3 stub, the default 256 MiB budget): maybe_offload on a
+    leader holding the 4 runs; the worker streams: K2 calls = chunks, no
+    K3. Each installed generation must be sha256-identical, file for file,
+    to the same data compacted by compact_range on a host DB under the
+    same budget; A reads back every key equal to the numpy oracle, B a
+    sample; one claim a job, no failover, reap or fence, no local
+    compaction on either leader; every launch from the worker's thread;
+    the ledger and the transfer objects swept."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rocksplicator_tpu_torch.cluster import (CoordinatorClient,
+                                                 CoordinatorServer)
+    from rocksplicator_tpu_torch.compaction_remote import (
+        CompactionJobQueue, CompactionWorker, RemoteCompactionManager,
+        RemoteDispatchPolicy)
+    from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.storage import DB, DBOptions
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.native_compaction import (
+        NativeCompactionBackend)
+    from rocksplicator_tpu_torch.utils import objectstore, stats
+    from rocksplicator_tpu_torch.utils.s3_stub import S3StubServer
+
+    root = os.path.join(work_dir, "remote")
+    os.makedirs(root)
+
+    def options(budget=0, **over):
+        opts = dict(merge_operator=UInt64AddOperator(),
+                    compaction_backend=NativeCompactionBackend(),
+                    level0_compaction_trigger=4,
+                    memtable_bytes=traffic["memtable_bytes"],
+                    max_subcompactions=1,
+                    compaction_memory_budget_bytes=budget)
+        opts.update(over)
+        return DBOptions(**opts)
+
+    def write_run(db, r):
+        ids, vtype, vals, key_bytes = traffic["ops"][r]
+        _write_ops(db, ids, vtype, vals, key_bytes, range(len(ids)))
+
+    t0 = time.time()
+    # the base: a flush a run, never a compaction
+    base = DB(base3, options(level0_compaction_trigger=1 << 30))
+    try:
+        base.checkpoint(os.path.join(root, "A"))
+        write_run(base, 3)
+        if [len(f) for f in base._levels][0] != 4:
+            raise AssertionError(f"remote worker: base levels "
+                                 f"{[len(f) for f in base._levels]}")
+        for tag in ("B", "comp_A", "comp_B"):
+            base.checkpoint(os.path.join(root, tag))
+    finally:
+        base.close()
+    setup_s = time.time() - t0
+
+    # the comparators: the same data compacted on the host, one a budget
+    comparators = {}
+    for tag, budget in (("A", 1 << 30), ("B", 0)):
+        db = DB(os.path.join(root, f"comp_{tag}"), options(budget))
+        try:
+            t1 = time.time()
+            db.compact_range()
+            comparators[tag] = {"generation": _generation(db),
+                                "levels": [len(f) for f in db._levels],
+                                "seconds": time.time() - t1}
+        finally:
+            db.close()
+
+    server = CoordinatorServer(port=0, data_dir=os.path.join(root, "coord"))
+    clients = []
+
+    def client():
+        clients.append(CoordinatorClient("127.0.0.1", server.port))
+        return clients[-1]
+
+    _sort_flag(SEAM_FLAGS["fused"])
+    backend = GpuCompactionBackend(device=dev)
+    worker = CompactionWorker(client(), os.path.join(root, "worker"),
+                              worker_id=REMOTE_WORKER_THREAD,
+                              backend=backend)
+    stop = threading.Event()
+    serving = threading.Thread(target=worker.serve_forever, args=(stop,),
+                               name=REMOTE_WORKER_THREAD)
+    threads_of = []
+    count_launch = _build.count_launch
+
+    def counted(name, cuda_launches=None):
+        threads_of.append((name, threading.current_thread().name))
+        count_launch(name, cuda_launches)
+
+    saved_env = {k: os.environ.get(k) for k in (
+        "AWS_ACCESS_KEY_ID", "AWS_SECRET_ACCESS_KEY", "RSTPU_S3_ENDPOINT")}
+    s3 = S3StubServer(access_key="remote-access", secret_key="remote-secret")
+    os.environ.update(AWS_ACCESS_KEY_ID="remote-access",
+                      AWS_SECRET_ACCESS_KEY="remote-secret",
+                      RSTPU_S3_ENDPOINT=s3.start())
+    stores = {"A": f"local://{root}/store", "B": "s3://remote-b"}
+    policy = RemoteDispatchPolicy(enabled=True, size_floor_bytes=0)
+    report = {"card": card, "ops": 4 * ENGINE_RUN_ENTRIES,
+              "setup_s": setup_s, "policy": dict(vars(policy)),
+              "stores": {"A": "local", "B": "s3 stub"}, "jobs": {}}
+    leaders, mgrs = {}, {}
+    stats.Stats.reset_for_test()
+    _build.count_launch = counted
+    serving.start()
+    try:
+        # ---- job A: the engine's own L0 pick at the trigger -----------
+        leaders["A"] = DB(os.path.join(root, "A"), options(
+            1 << 30, background_compaction=True,
+            compaction_scheduler=False))
+        mgrs["A"] = RemoteCompactionManager(
+            "remote-A", leaders["A"], client(), stores["A"], policy=policy)
+        timed = {"A": _Timed(mgrs["A"])}
+        leaders["A"].set_remote_compactor(mgrs["A"])
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t1 = time.time()
+        write_run(leaders["A"], 3)
+        write_a_s = time.time() - t1
+        deadline = time.time() + 900
+        while not timed["A"].offloads:
+            if time.time() > deadline:
+                raise AssertionError("remote worker: job A never offered")
+            time.sleep(0.05)
+        torch.cuda.synchronize()
+        launches_a = dict(_build.LAUNCHES)
+        job_a = _job_report(timed["A"], dict(worker.last_job), launches_a)
+        job_a["leader_write_run4_s"] = write_a_s
+        report["jobs"]["A"] = job_a
+        # ---- job B: maybe_offload on the 4 runs, streamed -------------
+        leaders["B"] = DB(os.path.join(root, "B"), options())
+        mgrs["B"] = RemoteCompactionManager(
+            "remote-B", leaders["B"], client(), stores["B"], policy=policy)
+        timed["B"] = _Timed(mgrs["B"])
+
+        class Pick:
+            kind = "l0"
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        mgrs["B"].maybe_offload(Pick())
+        torch.cuda.synchronize()
+        launches_b = dict(_build.LAUNCHES)
+        job_b = _job_report(timed["B"], dict(worker.last_job), launches_b)
+        job_b["stream_chunks"] = backend.last_stream_chunks
+        report["jobs"]["B"] = job_b
+    finally:
+        stop.set()
+        serving.join(600)
+        _build.count_launch = count_launch
+        if leaders.get("A") is not None:
+            leaders["A"].set_remote_compactor(None)
+    try:
+        counters = _remote_counters(stats, ("remote-A", "remote-B"))
+        queue = CompactionJobQueue(clients[0])
+        summary = queue.read_summary()
+        for tag, db in leaders.items():
+            job = report["jobs"][tag]
+            got = _generation(db)
+            if got != comparators[tag]["generation"] or [
+                    len(f) for f in db._levels] != comparators[tag]["levels"]:
+                raise AssertionError(
+                    f"remote worker job {tag}: generation {got} levels "
+                    f"{[len(f) for f in db._levels]}, comparator "
+                    f"{comparators[tag]}")
+            job["files"] = len(got)
+            snap = db.metrics_snapshot(max_age=0)
+            job["bytes_compacted_local_total"] = snap[
+                "bytes_compacted_local_total"]
+            job["remote_offloaded_bytes_total"] = snap[
+                "remote_offloaded_bytes_total"]
+            if job["outcome"] != "installed" or job["pick"] != "l0" \
+                    or len(timed[tag].offloads) != 1:
+                raise AssertionError(f"remote worker job {tag}: offloads "
+                                     f"{timed[tag].offloads}")
+            if snap["bytes_compacted_local_total"] != 0 \
+                    or not snap["remote_offloaded_bytes_total"]:
+                raise AssertionError(f"remote worker job {tag}: {snap}")
+            name = mgrs[tag].db_name
+            if queue.get_job(name) is not None or mgrs[tag]._store \
+                    .list_objects(f"compactions/{name}/"):
+                raise AssertionError(f"remote worker job {tag}: not swept")
+            if mgrs[tag].counters() != {"installed": 1, "failed_over": 0,
+                                        "fenced": 0, "republished": 0}:
+                raise AssertionError(f"remote worker job {tag}: "
+                                     f"{mgrs[tag].counters()}")
+            if (counters["claimed"][name], counters["installed"][name],
+                    counters["failed_over"][name], counters["reaped"][name],
+                    counters["fenced"][name], counters["stale"][name]) \
+                    != (1, 1, 0, 0, 0, 0):
+                raise AssertionError(f"remote worker job {tag}: counters "
+                                     f"{counters}")
+        if db_errors := [str(db._bg_compaction_error) for db in
+                         leaders.values() if db._bg_compaction_error]:
+            raise AssertionError(f"remote worker: {db_errors}")
+        a, b = report["jobs"]["A"], report["jobs"]["B"]
+        if a["launches"]["fused_resolve"] != 1 \
+                or a["launches"]["bloom_build"] != a["files"] \
+                or a["launches"]["bitonic_sort"] != 0:
+            raise AssertionError(f"remote worker job A: launches "
+                                 f"{a['launches']}, {a['files']} files")
+        if b["stream_chunks"] < 2 \
+                or b["launches"]["fused_resolve"] != b["stream_chunks"] \
+                or b["launches"]["bloom_build"] != 0 \
+                or b["launches"]["bitonic_sort"] != 0:
+            raise AssertionError(f"remote worker job B: launches "
+                                 f"{b['launches']}, {b['stream_chunks']} "
+                                 "chunks")
+        if (worker.jobs_done, worker.jobs_failed) != (2, 0) \
+                or counters["worker_done"] != 2:
+            raise AssertionError(f"remote worker: done {worker.jobs_done}, "
+                                 f"failed {worker.jobs_failed}")
+        if summary.get("reaped", 0) or summary.get("failed_over", 0) \
+                or summary.get("claimed") != 2 \
+                or summary.get("installed") != 2:
+            raise AssertionError(f"remote worker: ledger summary {summary}")
+        strays = sorted({t for _k, t in threads_of
+                         if t != REMOTE_WORKER_THREAD})
+        if strays:
+            raise AssertionError(f"remote worker: launches from {strays}")
+        report["read_back_A"] = check_read_back(
+            leaders["A"], traffic, "remote worker job A", scan=False)
+        rng = np.random.default_rng(801)
+        sample = np.sort(rng.choice(
+            traffic["touched"], min(1 << 16, len(traffic["touched"]) // 2),
+            replace=False))
+        report["read_back_B"] = check_read_back(
+            leaders["B"], traffic, "remote worker job B", ids=sample,
+            scan=False)
+    finally:
+        for db in leaders.values():
+            db.close()
+        for c in clients:
+            c.close()
+        server.stop()
+        s3.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        with objectstore._store_cache_lock:
+            objectstore._store_cache.clear()
+    report.update(comparators={k: {"seconds": v["seconds"],
+                                   "levels": v["levels"]}
+                               for k, v in comparators.items()},
+                  counters=counters, ledger_summary=summary,
+                  worker={"jobs_done": worker.jobs_done,
+                          "jobs_failed": worker.jobs_failed})
+    total = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    report["launches"] = total
+    return report, total
+
+
+def remote_worker_cli(dev, prepared: tuple, work_dir: str,
+                      card: str) -> tuple:
+    """The port's worker CLI as its own process: a port coordinator, a
+    host leader (NativeCompactionBackend) holding 4 runs of 2^18 counter
+    entries ingested from ``service_dbs``' first DB, its offload waiting
+    in a thread, and ``python -m rocksplicator_tpu_torch.tools.
+    compaction_worker --coord 127.0.0.1:<port> --backend gpu --once``,
+    which claims the job, merges it on the card and exits 0. The leader
+    installs it; its files equal the same DB compacted by compact_range
+    on the host; the CLI's own launch counts (RSTPU_LAUNCH_COUNTS_FILE)
+    show one K2 call and one K3 call a file."""
+    import os
+    import threading
+
+    from rocksplicator_tpu_torch.cluster import (CoordinatorClient,
+                                                 CoordinatorServer)
+    from rocksplicator_tpu_torch.compaction_remote import (
+        CompactionJobQueue, RemoteCompactionManager, RemoteDispatchPolicy)
+    from rocksplicator_tpu_torch.storage import DB, DBOptions
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.native_compaction import (
+        NativeCompactionBackend)
+
+    inputs = prepared[0]
+    _root, runs = inputs["db0"]
+    root = os.path.join(work_dir, "remote_cli")
+    os.makedirs(root)
+
+    def opened(tag):
+        db = DB(os.path.join(root, tag), DBOptions(
+            merge_operator=UInt64AddOperator(),
+            compaction_backend=NativeCompactionBackend(),
+            max_subcompactions=1))
+        for run in runs:
+            db.ingest_external_file([run])
+        return db
+
+    leader, comparator = opened("leader"), opened("comparator")
+    server = CoordinatorServer(port=0)
+    clients = [CoordinatorClient("127.0.0.1", server.port)
+               for _ in range(2)]
+    outcome = []
+    counts_path = os.path.join(root, "cli_launches.json")
+    try:
+        comparator.compact_range()
+        mgr = RemoteCompactionManager(
+            "remote-cli", leader, clients[0], f"local://{root}/store",
+            policy=RemoteDispatchPolicy(enabled=True, size_floor_bytes=0,
+                                        claim_wait_s=300.0,
+                                        deadline_s=600.0))
+
+        class Pick:
+            kind = "l0"
+
+        offload = threading.Thread(
+            target=lambda: outcome.append(mgr.maybe_offload(Pick())))
+        offload.start()
+        queue = CompactionJobQueue(clients[1])
+        deadline = time.time() + 300
+        while queue.list_open_jobs() != ["remote-cli"]:
+            if time.time() > deadline or not offload.is_alive():
+                raise AssertionError("remote worker cli: no job published")
+            time.sleep(0.05)
+        env = dict(os.environ, RSTPU_LAUNCH_COUNTS_FILE=counts_path,
+                   RSTPU_FLAG_SORT_BACKEND="pallas_fused")
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "rocksplicator_tpu_torch.tools.compaction_worker",
+             "--coord", f"127.0.0.1:{server.port}", "--backend", "gpu",
+             "--once", "--workdir", os.path.join(root, "cli_work"),
+             "--worker-id", "remote-cli-worker"],
+            env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.time() - t0
+        offload.join(600)
+        if proc.returncode != 0:
+            raise AssertionError(f"remote worker cli: rc {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        if outcome != ["installed"]:
+            raise AssertionError(f"remote worker cli: {outcome}: "
+                                 f"{proc.stderr[-3000:]}")
+        got, want = _generation(leader), _generation(comparator)
+        if got != want or [len(f) for f in leader._levels] != [
+                len(f) for f in comparator._levels]:
+            raise AssertionError(f"remote worker cli: {got} vs {want}")
+        with open(counts_path) as f:
+            launches = json.load(f)
+        if launches["fused_resolve"] != 1 \
+                or launches["bloom_build"] != len(got) \
+                or launches["bitonic_sort"] != 0:
+            raise AssertionError(f"remote worker cli: launches {launches}, "
+                                 f"{len(got)} files")
+        if leader.metrics_snapshot(max_age=0)[
+                "bytes_compacted_local_total"] != 0:
+            raise AssertionError("remote worker cli: the leader compacted")
+        if "1 jobs, 0 failed" not in proc.stderr:
+            raise AssertionError(f"remote worker cli: {proc.stderr[-3000:]}")
+        sample = [b"counter:" + int(i).to_bytes(8, "big")
+                  for i in range(0, 4 * DBS_RUN_ENTRIES, 61)]
+        if leader.multi_get(sample) != comparator.multi_get(sample):
+            raise AssertionError("remote worker cli: reads differ")
+    finally:
+        for c in clients:
+            c.close()
+        server.stop()
+        leader.close()
+        comparator.close()
+    return {"card": card, "entries": 4 * DBS_RUN_ENTRIES, "runs": 4,
+            "cli_seconds": cli_s, "files": len(got),
+            "identical_files": len(got), "outcome": outcome[0],
+            "launches": launches}, launches
+
+
 def main() -> int:
+    import os
+
     import numpy as np
     import torch
 
@@ -2356,15 +2881,24 @@ def main() -> int:
         emit({"phase": "batch_compactor", **compactor})
         # ---- 4f. the port's storage engine, in auto stream mode --------
         traffic = engine_traffic()
-        eng, eng_launches = engine_db(dev, traffic, work_dir, card)
+        run3 = os.path.join(work_dir, "engine_host_run3")
+        eng, eng_launches = engine_db(dev, traffic, work_dir, card, run3)
         emit({"phase": "engine_db", **eng})
-        eng_bg, eng_bg_launches = engine_db_background(dev, traffic,
-                                                       work_dir, card)
+        eng_bg, eng_bg_launches = engine_db_background(
+            dev, engine_traffic(run_entries=ENGINE_BG_RUN_ENTRIES), work_dir,
+            card)
         emit({"phase": "engine_db_background", **eng_bg})
+        # ---- 4g. the remote compaction tier, the card as its worker ----
+        remote, remote_launches = remote_worker(dev, traffic, run3,
+                                                work_dir, card)
+        emit({"phase": "remote_worker", **remote})
         del traffic
         eng_in, eng_in_launches = engine_db_ingest(dev, prepared, work_dir,
                                                    card)
         emit({"phase": "engine_db_ingest", **eng_in})
+        remote_cli, remote_cli_launches = remote_worker_cli(
+            dev, prepared, work_dir, card)
+        emit({"phase": "remote_worker_cli", **remote_cli})
         cost = instrumentation_cost()
         per_stream = stream["backends"]["fused"]["counters"]
         emit({"phase": "instrumented_seconds", "card": card,
@@ -2396,6 +2930,8 @@ def main() -> int:
         "engine_db": eng_launches,
         "engine_db_background": eng_bg_launches,
         "engine_db_ingest": eng_in_launches,
+        "remote_worker": remote_launches,
+        "remote_worker_cli": remote_cli_launches,
     }
     launches_by_path = {p: {k: c[k] for k in sources}
                         for p, c in launches_by_path.items()}

@@ -17,13 +17,18 @@ raises.
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it; the
 wrappers add one right after a successful launch and nowhere else.
 ``CUDA_LAUNCHES`` holds, per kernel, the CUDA launches (kernels and
-memsets) of its last call, as its C entry point counted them.
+memsets) of its last call, as its C entry point counted them. With
+``RSTPU_LAUNCH_COUNTS_FILE`` set, a process writes its ``LAUNCHES`` there
+as JSON when it exits, so a caller can read a child's counts (the
+compaction worker CLI's, for one).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -58,6 +63,15 @@ def count_launch(name: str, cuda_launches: Optional[int] = None) -> None:
         LAUNCHES[name] += 1
         if cuda_launches is not None:
             CUDA_LAUNCHES[name] = cuda_launches
+
+
+def _write_launches(path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(LAUNCHES, f)
+
+
+if os.environ.get("RSTPU_LAUNCH_COUNTS_FILE"):
+    atexit.register(_write_launches, os.environ["RSTPU_LAUNCH_COUNTS_FILE"])
 
 
 def _digest() -> str:

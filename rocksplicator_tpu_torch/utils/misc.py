@@ -1,9 +1,28 @@
-"""Small file helpers — the port's copy of the part of
-``rocksplicator_tpu/utils/misc.py`` that the storage engine uses."""
+"""Small host helpers — the port's copy of the part of
+``rocksplicator_tpu/utils/misc.py`` that the storage engine, the RPC
+transport and the coordinator use."""
 
 from __future__ import annotations
 
 import os
+import socket
+
+
+def local_ip() -> str:
+    """Best-effort local routable IP (reference common/network_util)."""
+    env = os.environ.get("RSTPU_LOCAL_IP")
+    if env:
+        return env
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        # No packets are sent for a UDP connect; this just picks the
+        # interface the kernel would route through.
+        s.connect(("10.255.255.255", 1))
+        return s.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+    finally:
+        s.close()
 
 
 def write_file_atomic(path: str, data: bytes) -> None:

@@ -3,8 +3,10 @@ do not quietly run on the CPU when CUDA is missing; its engine seam
 (``gpu/``, ``storage/``) compacts into a file, its batched service
 compacts shards, its post-ingest BatchCompactor compacts stub DBs past
 an armed failpoint, and its storage engine opens, writes, flushes,
-compacts and reopens a DB with the host and the card's backends, on the
-CPU with both blocked, counting into the port's own Stats.
+compacts and reopens a DB with the host and the card's backends, and its
+remote compaction tier (a coordinator, a worker on the card's backend, a
+leader) offloads one compaction, on the CPU with both blocked, counting
+into the port's own Stats.
 
 The import check runs in a subprocess, because this test process has
 imported JAX already (tests/conftest.py)."""
@@ -54,7 +56,15 @@ seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
         "testing.failpoint_registry", "admin", "admin.ingest_pipeline",
         "storage.records", "storage.memtable", "storage.wal",
         "storage.engine", "storage.native", "storage.native.binding",
-        "utils.misc"}
+        "utils.misc", "utils.retry_policy", "utils.rate_limiter",
+        "utils.directio", "utils.objectstore", "utils.s3", "utils.s3_stub",
+        "rpc", "rpc.errors", "rpc.serde", "rpc.framing", "rpc.deadline",
+        "rpc.admission", "rpc.ioloop", "rpc.transport", "rpc.client",
+        "rpc.client_pool", "rpc.server", "cluster", "cluster.coordinator",
+        "compaction_remote", "compaction_remote.jobs",
+        "compaction_remote.queue", "compaction_remote.worker",
+        "compaction_remote.install", "compaction_remote.dispatch",
+        "tools", "tools.compaction_worker"}
 missing = {m for m in seam if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 print("IMPORTED", len(names))
@@ -198,6 +208,66 @@ with tempfile.TemporaryDirectory() as d:
         raise AssertionError("a DB compacting on the card opened without "
                              "CUDA")
 print("ENGINE_ON_CPU")
+
+# the remote compaction tier: a port coordinator, a port worker on the
+# card's backend (its plain versions on the CPU) and a port leader that
+# offloads one compaction and reads it back; the worker's default backend
+# is the card, so without CUDA it refuses to build
+import threading
+from rocksplicator_tpu_torch.cluster import (CoordinatorClient,
+                                             CoordinatorServer)
+from rocksplicator_tpu_torch.compaction_remote import (
+    CompactionWorker, RemoteCompactionManager, RemoteDispatchPolicy)
+from rocksplicator_tpu_torch.compaction_remote.worker import _build_backend
+try:
+    _build_backend(None)
+except RuntimeError as exc:
+    assert "CUDA is not available" in str(exc), exc
+else:
+    raise AssertionError("the worker's default backend built without CUDA")
+with tempfile.TemporaryDirectory() as d:
+    server = CoordinatorServer(port=0, data_dir=d + "/coord")
+    clients = [CoordinatorClient("127.0.0.1", server.port) for _ in range(2)]
+    db = DB(d + "/db", DBOptions(merge_operator=UInt64AddOperator(),
+                                 compaction_backend=NativeCompactionBackend(),
+                                 memtable_bytes=2048,
+                                 level0_compaction_trigger=100))
+    for r in range(3):
+        batch = WriteBatch()
+        for i in range(40):
+            batch.merge(b"counter:%08d" % i, pk(r + 1))
+        db.write(batch)
+        db.flush()
+    worker = CompactionWorker(clients[1], d + "/wk",
+                              backend=GpuCompactionBackend(device="cpu"),
+                              poll_interval=0.05)
+    stop = threading.Event()
+    thread = threading.Thread(target=worker.serve_forever, args=(stop,))
+    thread.start()
+    try:
+        mgr = RemoteCompactionManager(
+            "db0", db, clients[0], "local://" + d + "/store",
+            policy=RemoteDispatchPolicy(enabled=True, size_floor_bytes=0,
+                                        claim_wait_s=120.0,
+                                        deadline_s=300.0))
+        class Pick:
+            kind = "l0"
+        outcome = mgr.maybe_offload(Pick())
+    finally:
+        stop.set()
+        thread.join()
+    assert outcome == "installed", outcome
+    assert worker.jobs_done == 1, worker.jobs_done
+    # the direct sink ran (streamed: the stream mode is "always" here)
+    assert "submit" in worker.last_job["backend_stages"], worker.last_job
+    got = db.multi_get([b"counter:%08d" % i for i in range(40)])
+    assert got == [pk(6)] * 40, got[:3]
+    assert db.metrics_snapshot(max_age=0)["bytes_compacted_local_total"] == 0
+    db.close()
+    for c in clients:
+        c.close()
+    server.stop()
+print("REMOTE_ON_CPU")
 rc = chip_smoke.main()
 assert rc != 0, rc
 print("SMOKE_REFUSES", rc)
@@ -222,6 +292,7 @@ def test_port_imports_without_jax_and_refuses_cpu_fallback():
     assert "BATCH_ON_CPU" in res.stdout
     assert "BATCH_COMPACTOR_ON_CPU" in res.stdout
     assert "ENGINE_ON_CPU" in res.stdout
+    assert "REMOTE_ON_CPU" in res.stdout
     assert "SMOKE_REFUSES" in res.stdout
     assert '"ok"' not in res.stdout
 
@@ -278,5 +349,15 @@ def test_port_failpoint_sites_are_registered():
               # compaction install, the scheduler's pick and yield)
               "wal.append", "wal.fsync", "wal.roll", "sst.fsync",
               "manifest.persist", "engine.ingest", "sst.ingest_footer",
-              "compact.install", "compact.pick", "compact.yield"}
+              "compact.install", "compact.pick", "compact.yield",
+              # the remote compaction tier and the layers under it: the
+              # object store and S3 client, the RPC core, the coordinator
+              "compact.remote.publish", "compact.remote.claim",
+              "compact.remote.fetch", "compact.remote.upload",
+              "compact.remote.install", "compact.remote.heartbeat",
+              "objectstore.get", "objectstore.put", "s3.request",
+              "rpc.connect", "rpc.frame.send", "rpc.frame.recv",
+              "rpc.deadline.check", "admission.shed",
+              "coordinator.wal.append", "coordinator.reap",
+              "coordinator.heartbeat"}
     assert dead == set(REGISTRY) - ported
