@@ -53,7 +53,7 @@ PyTorch built for CUDA. It
    ``compact_shard_batch`` over 8 shards of 2^20 counter entries
    (``service_batch``: one K2 and one K3 call, each shard equal to
    ``numpy_merge_resolve`` and the host bloom) and ``compact_dbs_batched``
-   over 12 stub DBs of 4 planar runs of 2^18 entries (``service_dbs``: a
+   over 12 stub DBs of 4 planar runs of 2^17 entries (``service_dbs``: a
    group of 8 and a padded group of 4 on the stream path, every file
    byte-identical to the numpy-resolved sink's);
 4d. drives the post-ingest caller, ``admin.BatchCompactor``, over the same
@@ -63,11 +63,11 @@ PyTorch built for CUDA. It
    sink's, no DB compacted by the per-DB fallback, no error logged by the
    port's admin logger);
 4f. drives the port's storage engine, ``storage.DB``, in the
-   environment's stream mode: the counter traffic (4 x 2^20 ops in
+   environment's stream mode: the counter traffic (4 x 2^19 ops in
    WriteBatches of 1024) through ``DB.write`` into a DB that compacts on
    the card (fused) and one on the host (``NativeCompactionBackend``), and
    run 4 into a third, on the card (bitonic), opened from the host DB's
-   checkpoint after run 3, each run's last batch flushing 2^20
+   checkpoint after run 3, each run's last batch flushing 2^19
    entries and the fourth flush compacting L0 inline, then
    ``compact_range`` (``engine_db``: files byte for byte against the
    host DB's, one K2 (K1) call a compaction and one K3 call a file, every
@@ -123,6 +123,21 @@ PyTorch built for CUDA. It
    rocksplicator_tpu_torch.tools.compaction_worker --backend gpu --once``
    over 4 runs of 2^18 entries: exit 0, the job installed, files equal
    to the host's, its own launch counts);
+4h. drives the replicated shard through the port's admin plane
+   (``replicated_counter``): four nodes, each a port ``Replicator`` and
+   ``AdminHandler`` on a port ``RpcServer``; A leads on the card, B
+   follows on the card, C follows with ``gpu_compaction=False`` (the
+   host's comparator), D starts empty on the card; the counter service's
+   options, ack mode 1; DBs opened by ``add_db`` RPCs; 4 x 2^19 counter
+   ops pipelined through A's ``ApplicationDB.write_async``; ``compact_db``
+   on A, B and C, ``backup_db_to_s3`` of B into the port's S3 stub and
+   ``restore_db_from_s3`` into D. Every key reads back from A and B equal
+   to the numpy oracle, A's, B's and C's files are sha256-equal, D's equal
+   B's backup; A's and B's K2 calls = in-RAM compactions + stream chunks
+   (the port's Stats, by replica), K3 calls = their in-RAM files, C
+   launches nothing, no compaction raises (write() ack p50 / p99, ops/s,
+   the followers' lag, each replica's compactions and compact_db
+   seconds, backup and restore seconds);
 
 Every phase raises on failure and the script then exits non-zero. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -158,9 +173,10 @@ SEAM_TARGET_FILE_BYTES = 64 << 20
 PARITY_N = 1 << 17
 # the batched service: shards of compact_shard_batch (the JAX package's
 # MAX_BATCHED_DB_ENTRIES at its default group of 8), and the runs of each
-# stub DB of compact_dbs_batched (four fill one such shard)
+# stub DB of compact_dbs_batched (four fill half such a shard, to keep the
+# command's time)
 SERVICE_ENTRIES = 1 << 20
-DBS_RUN_ENTRIES = 1 << 18
+DBS_RUN_ENTRIES = 1 << 17
 DBS_SHARDS = 12
 WIDE_RUN_ENTRIES = 1 << 18
 # K3 on one output file's bloom: the seam's per-file shape
@@ -1186,8 +1202,8 @@ class _StubDB:
 
 
 def stub_db_inputs(work_dir: str) -> tuple:
-    """12 stub DBs' inputs, each 4 planar SST runs of 2^18 counter entries
-    (one shard at MAX_BATCHED_DB_ENTRIES), and the files the numpy-resolved
+    """12 stub DBs' inputs, each 4 planar SST runs of 2^17 counter entries
+    (half a shard at MAX_BATCHED_DB_ENTRIES), and the files the numpy-resolved
     sink writes from them: ({name: (root, input paths)}, {name: reference
     files}, {name: entries out}, DB options, seconds)."""
     import os
@@ -1378,14 +1394,15 @@ def batch_compactor(dev, prepared: tuple, card: str) -> tuple:
 
 
 # ---- the port's storage engine on the card ---------------------------------
-# engine_db: 4 runs of this many counter ops, written through DB.write in
-# WriteBatches of ENGINE_BATCH ops, one memtable flush a run; four flushes
-# fill one launch (MAX_TPU_ENTRIES)
-ENGINE_RUN_ENTRIES = 1 << 20
-# engine_db_background's runs: half the depth, to keep the command's time,
-# under half the default 256 MiB compaction budget, so that its
-# compactions stream as they do at full depth under the default
-ENGINE_BG_RUN_ENTRIES = ENGINE_RUN_ENTRIES // 2
+# engine_db (and remote_worker): 4 runs of this many counter ops, written
+# through DB.write in WriteBatches of ENGINE_BATCH ops, one memtable flush
+# a run; half of one launch (MAX_TPU_ENTRIES) in all, to keep the
+# command's time
+ENGINE_RUN_ENTRIES = 1 << 19
+# engine_db_background's runs: half of MAX_TPU_ENTRIES, to keep the
+# command's time, under half the default 256 MiB compaction budget, so
+# that its compactions stream as they do at full depth under the default
+ENGINE_BG_RUN_ENTRIES = 1 << 19
 ENGINE_BG_BUDGET_BYTES = 128 << 20
 ENGINE_BATCH = 1024
 ENGINE_WRITERS = 4
@@ -1585,17 +1602,17 @@ def _timed_db(db, backend, log: list) -> None:
 
 def engine_db(dev, traffic: dict, work_dir: str, card: str,
               run3_checkpoint: str = "") -> tuple:
-    """The port's DB at MAX_TPU_ENTRIES: the counter traffic written
+    """The port's DB at half of MAX_TPU_ENTRIES: the counter traffic written
     through DB.write into a DB that compacts on the card under the fused
     sort backend (K2) and one that compacts on the host (the port's
     NativeCompactionBackend); a third DB, on the card under the bitonic
     sort backend (K1 and the torch resolve), starts from the host DB's
     checkpoint after its third run and takes run 4's writes, so it
-    compacts the same 2^22 entries without writing runs 1-3 again.
+    compacts the same 2^21 entries without writing runs 1-3 again.
     DBOptions' defaults otherwise (32 KiB blocks, zlib, 10 bits a key, 64 MiB files),
     UInt64AddOperator, level0_compaction_trigger 4, inline flushes and
-    compactions. Each run's last batch flushes 2^20 entries; the fourth
-    flush compacts L0 into L1 (2^22 entries), then compact_range()
+    compactions. Each run's last batch flushes 2^19 entries; the fourth
+    flush compacts L0 into L1 (2^21 entries), then compact_range()
     compacts everything into the bottom level. ``max_subcompactions`` is
     1 (the host's slices write a file set each, the card's one), and the
     memory budget 1 GiB (the in-RAM route: one K2 call a compaction).
@@ -2019,7 +2036,7 @@ def remote_worker(dev, traffic: dict, base3: str, work_dir: str,
     Job A (local store, leader budget 1 GiB): a leader holding runs 1-3
     with background compaction (the legacy L0 trigger, 4) takes run 4's
     writes; its own L0 pick reaches maybe_offload, and the worker merges
-    the 2^22 entries in RAM: one K2 call and one K3 call a file. Job B
+    the 2^21 entries in RAM: one K2 call and one K3 call a file. Job B
     (the port's S3 stub, the default 256 MiB budget): maybe_offload on a
     leader holding the 4 runs; the worker streams: K2 calls = chunks, no
     K3. Each installed generation must be sha256-identical, file for file,
@@ -2282,7 +2299,7 @@ def remote_worker(dev, traffic: dict, base3: str, work_dir: str,
 def remote_worker_cli(dev, prepared: tuple, work_dir: str,
                       card: str) -> tuple:
     """The port's worker CLI as its own process: a port coordinator, a
-    host leader (NativeCompactionBackend) holding 4 runs of 2^18 counter
+    host leader (NativeCompactionBackend) holding 4 runs of 2^17 counter
     entries ingested from ``service_dbs``' first DB, its offload waiting
     in a thread, and ``python -m rocksplicator_tpu_torch.tools.
     compaction_worker --coord 127.0.0.1:<port> --backend gpu --once``,
@@ -2390,6 +2407,394 @@ def remote_worker_cli(dev, prepared: tuple, work_dir: str,
             "cli_seconds": cli_s, "files": len(got),
             "identical_files": len(got), "outcome": outcome[0],
             "launches": launches}, launches
+
+
+# ---- the replicated shard and its admin plane on the card -----------------
+# replicated_counter: 4 runs of this many counter ops (2^21 in all, half of
+# MAX_TPU_ENTRIES: the one cut, of depth), pipelined through the leader's
+# ApplicationDB.write_async in WriteBatches of ENGINE_BATCH ops
+REPL_RUN_ENTRIES = 1 << 19
+REPL_DB = "counter00000"
+REPL_SAMPLE_KEYS = 1 << 16
+# the engine's default memtable (named so a rehearsal can shrink it)
+REPL_MEMTABLE_BYTES = 8 << 20
+
+
+class _CompactionLog:
+    """Attributes the compactions of the replicated shard to its replicas.
+
+    During the phase, ``merge_runs_to_files`` of the card's and the
+    host's backends is wrapped at the class: each call runs under the
+    replica's tag (a thread-local, the backend instance's owner), and is
+    logged with its thread, output files, streamed chunks and stage
+    seconds; an exception is counted and re-raised. Each kernel launch and
+    each ``compaction.stream_*`` increment of the port's Stats is
+    attributed to the tag it ran under (``None`` outside every
+    compaction)."""
+
+    def __init__(self):
+        import threading
+
+        self.tls = threading.local()
+        self.owner = {}
+        self.calls, self.errors, self.launches = [], [], []
+        self.stream = []
+
+    def tag(self):
+        return getattr(self.tls, "tag", None)
+
+    def install(self):
+        import threading
+
+        from rocksplicator_tpu_torch.gpu import GpuCompactionBackend
+        from rocksplicator_tpu_torch.ops import _build
+        from rocksplicator_tpu_torch.storage.native_compaction import (
+            NativeCompactionBackend)
+        from rocksplicator_tpu_torch.utils.stats import Stats
+
+        log = self
+        self._saved = [(cls, cls.merge_runs_to_files) for cls in (
+            GpuCompactionBackend, NativeCompactionBackend)]
+        for cls, real in self._saved:
+            def wrapped(backend, *args, _real=real, **kwargs):
+                tag = log.owner.get(id(backend), "unowned")
+                log.tls.tag = tag
+                thread = threading.current_thread().name
+                t0 = time.time()
+                try:
+                    outs = _real(backend, *args, **kwargs)
+                except BaseException as exc:
+                    log.errors.append((tag, thread, repr(exc)))
+                    raise
+                finally:
+                    log.tls.tag = None
+                log.calls.append({
+                    "replica": tag, "thread": thread,
+                    "seconds": time.time() - t0,
+                    "files": None if outs is None else len(outs),
+                    "chunks": getattr(backend, "last_stream_chunks", None),
+                    "stages": dict(getattr(backend, "last_stage_seconds",
+                                           {}))})
+                return outs
+            cls.merge_runs_to_files = wrapped
+        self._count_launch = _build.count_launch
+
+        def counted(name, cuda_launches=None):
+            log.launches.append((name, log.tag(),
+                                 threading.current_thread().name))
+            log._count_launch(name, cuda_launches)
+
+        _build.count_launch = counted
+        self._stats = Stats.get()
+        incr = self._stats.incr
+
+        def counted_incr(name, value=1.0):
+            if name.startswith("compaction.stream_"):
+                log.stream.append((name, log.tag(), value))
+            incr(name, value)
+
+        self._stats.incr = counted_incr
+
+    def uninstall(self):
+        from rocksplicator_tpu_torch.ops import _build
+
+        for cls, real in self._saved:
+            cls.merge_runs_to_files = real
+        _build.count_launch = self._count_launch
+        del self._stats.incr
+
+    def of(self, tag) -> dict:
+        """One replica's compactions: calls by thread kind, in-RAM calls
+        and their files, the Stats' stream chunks and merges, launches by
+        kernel and by thread kind."""
+        calls = [c for c in self.calls if c["replica"] == tag]
+        chunks = sum(v for n, t, v in self.stream
+                     if t == tag and n == "compaction.stream_chunks")
+        merges = sum(v for n, t, v in self.stream
+                     if t == tag and n == "compaction.stream_merges")
+
+        def kind(thread):
+            return ("background" if thread.startswith("lsm-compact-")
+                    else "compact_db" if thread.startswith("admin")
+                    else thread)
+
+        launches = {}
+        for name, t, thread in self.launches:
+            if t == tag:
+                key = f"{name}@{kind(thread)}"
+                launches[key] = launches.get(key, 0) + 1
+        # the card's backend reports its chunks a call; the host's not
+        in_ram = [c for c in calls if c["chunks"] == 0]
+        return {"calls": len(calls),
+                "by_thread": {k: sum(1 for c in calls
+                                     if kind(c["thread"]) == k)
+                              for k in ("background", "compact_db")},
+                "in_ram": len(calls) - int(merges),
+                "in_ram_by_backend": len(in_ram),
+                "in_ram_files": sum(c["files"] or 0 for c in in_ram),
+                "stream_chunks": int(chunks), "stream_merges": int(merges),
+                "backend_chunks": sum(c["chunks"] or 0 for c in calls),
+                "launches": launches,
+                "seconds": [c["seconds"] for c in calls],
+                "stages": [c["stages"] for c in calls]}
+
+
+def replicated_counter(dev, traffic: dict, work_dir: str,
+                       card: str) -> tuple:
+    """One counter shard replicated over the port's admin plane: four
+    nodes in this process, each a port Replicator and AdminHandler on a
+    port RpcServer. A leads on the card; B follows A on the card; C
+    follows A with gpu_compaction=False (the host's NativeCompactionBackend,
+    the comparator); D starts empty on the card. The counter service's
+    options (UInt64AddOperator, WAL TTL 3600 s, 10 bits a key, background
+    flush and compaction; the engine's defaults otherwise, but one slice a
+    compaction so the card's files compare with the host's), ack mode 1.
+
+    DBs open by add_db RPCs through a port RpcClientPool; ``traffic``
+    (4 x REPL_RUN_ENTRIES ops, key space 2^20) is pipelined through A's
+    ApplicationDB.write_async in WriteBatches of ENGINE_BATCH under the
+    default write window; B and C catch up to A's sequence number;
+    compact_db runs on A, B and C; B is backed up by backup_db_to_s3 into
+    the port's S3 stub and restored into D by restore_db_from_s3.
+    Every key reads back from A and B equal to the numpy oracle; A's, B's
+    and C's live files are sha256-equal as a multiset and their sequence
+    numbers equal; D's files equal B's at the backup, its sequence number
+    B's, and a seeded sample of REPL_SAMPLE_KEYS keys the oracle. A's and
+    B's compactions launched K2 from their background compaction threads
+    and from compact_db; K2 calls = in-RAM compactions + stream chunks
+    (the port's Stats, by replica), K3 calls = the in-RAM compactions'
+    files, no K1; C launched nothing; no compaction raised and no replica
+    is left in background error."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from rocksplicator_tpu_torch.admin import AdminHandler
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.replication import (ReplicationFlags,
+                                                     Replicator)
+    from rocksplicator_tpu_torch.rpc import IoLoop, RpcClientPool, RpcServer
+    from rocksplicator_tpu_torch.storage import DBOptions
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.utils import objectstore
+    from rocksplicator_tpu_torch.utils.s3_stub import S3StubServer
+
+    def counter_options(segment):
+        return DBOptions(merge_operator=UInt64AddOperator(),
+                         wal_ttl_seconds=3600.0, bits_per_key=10,
+                         background_compaction=True, max_subcompactions=1,
+                         memtable_bytes=REPL_MEMTABLE_BYTES)
+
+    root = os.path.join(work_dir, "replicated")
+    os.makedirs(root)
+    _sort_flag(SEAM_FLAGS["fused"])
+    flags = ReplicationFlags()
+    nodes = {}
+    log = _CompactionLog()
+    pool, ioloop = RpcClientPool(), IoLoop.default()
+    saved_env = {k: os.environ.get(k) for k in (
+        "AWS_ACCESS_KEY_ID", "AWS_SECRET_ACCESS_KEY", "RSTPU_S3_ENDPOINT")}
+    s3 = S3StubServer(access_key="repl-access", secret_key="repl-secret")
+    os.environ.update(AWS_ACCESS_KEY_ID="repl-access",
+                      AWS_SECRET_ACCESS_KEY="repl-secret",
+                      RSTPU_S3_ENDPOINT=s3.start())
+
+    def call(tag, method, **args):
+        async def go():
+            return await pool.call("127.0.0.1", nodes[tag][2].port, method,
+                                   args, timeout=900)
+        return ioloop.run_sync(go())
+
+    def app_db(tag):
+        return nodes[tag][1].db_manager.get_db(REPL_DB)
+
+    def digests(tag):
+        db = app_db(tag).db
+        return sorted(hashlib.sha256(open(os.path.join(db.path, n),
+                                          "rb").read()).hexdigest()
+                      for level in db._levels for n in level)
+
+    def seq(tag):
+        return call(tag, "get_sequence_number", db_name=REPL_DB)["seq_num"]
+
+    report = {"card": card, "ops": 4 * traffic["run_entries"],
+              "batch": ENGINE_BATCH, "mode": 1,
+              "write_window": flags.write_window,
+              "ack_timeout_ms": flags.ack_timeout_ms}
+    t_setup = time.time()
+    log.install()
+    try:
+        for tag, kw in (("A", {"device": dev}), ("B", {"device": dev}),
+                        ("C", {"gpu_compaction": False}),
+                        ("D", {"device": dev})):
+            replicator = Replicator(port=0, flags=flags)
+            handler = AdminHandler(os.path.join(root, tag), replicator,
+                                   options_generator=counter_options, **kw)
+            server = RpcServer(port=0, ioloop=replicator.ioloop)
+            server.add_handler(handler)
+            server.start()
+            nodes[tag] = (replicator, handler, server)
+        call("A", "add_db", db_name=REPL_DB, role="LEADER",
+             replication_mode=1)
+        for tag in ("B", "C"):
+            call(tag, "add_db", db_name=REPL_DB, role="FOLLOWER",
+                 upstream_ip="127.0.0.1", upstream_port=nodes["A"][0].port,
+                 replication_mode=1)
+        for tag in ("A", "B", "C"):
+            log.owner[id(app_db(tag).db._backend)] = tag
+        backends = {t: type(app_db(t).db._backend).__name__
+                    for t in ("A", "B", "C")}
+        if backends != {"A": "GpuCompactionBackend",
+                        "B": "GpuCompactionBackend",
+                        "C": "NativeCompactionBackend"}:
+            raise AssertionError(f"replicated counter: backends {backends}")
+        report["setup_s"] = time.time() - t_setup
+        leader = app_db("A")
+        waiters, acks = [], []
+
+        class Pipelined:
+            """write() as the counter service writes: write_async, the
+            ack awaited later; the window's flow control bounds the
+            writes in flight."""
+
+            @staticmethod
+            def write(batch):
+                t = time.perf_counter()
+                w = leader.write_async(batch)
+                w.future.add_done_callback(
+                    lambda _f, t=t: acks.append(time.perf_counter() - t))
+                waiters.append(w)
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.time()
+        for ids, vtype, vals, key_bytes in traffic["ops"]:
+            _write_ops(Pipelined, ids, vtype, vals, key_bytes,
+                       range(len(ids)))
+        submit_s = time.time() - t0
+        for w in waiters:
+            w.result(timeout=900)
+        write_s = time.time() - t0
+        want = leader.latest_sequence_number()
+        lag = {t: want - app_db(t).latest_sequence_number()
+               for t in ("B", "C")}
+        deadline = time.time() + 900
+        while seq("B") != want or seq("C") != want:
+            if time.time() > deadline:
+                raise AssertionError(f"replicated counter: followers at "
+                                     f"{seq('B')}, {seq('C')} of {want}")
+            time.sleep(0.05)
+        catch_up_s = time.time() - t0 - write_s
+        acked = sum(1 for w in waiters if w.acked)
+        lat = sorted(acks)
+        report.update(
+            batches=len(waiters), acked=acked, seq=want,
+            submit_s=submit_s, write_s=write_s,
+            ops_per_s=4 * traffic["run_entries"] / write_s,
+            ack_p50_ms=1e3 * lat[len(lat) // 2],
+            ack_p99_ms=1e3 * lat[min(len(lat) - 1, (99 * len(lat)) // 100)],
+            follower_lag_seqs_at_end=lag, follower_catch_up_s=catch_up_s,
+            levels_before_compact_db={
+                t: [len(f) for f in app_db(t).db._levels]
+                for t in ("A", "B", "C")})
+        compact_s = {}
+        for tag in ("A", "B", "C"):
+            t1 = time.time()
+            call(tag, "compact_db", db_name=REPL_DB)
+            compact_s[tag] = time.time() - t1
+        torch.cuda.synchronize()
+        report["compact_db_s"] = compact_s
+        files = {t: digests(t) for t in ("A", "B", "C")}
+        seqs = {t: seq(t) for t in ("A", "B", "C")}
+        if not files["A"] or files["A"] != files["B"] \
+                or files["A"] != files["C"]:
+            raise AssertionError(f"replicated counter: files differ {files}")
+        if len(set(seqs.values())) != 1 or seqs["A"] != want:
+            raise AssertionError(f"replicated counter: seqs {seqs}")
+        report["files"] = len(files["A"])
+        report["read_back"] = {
+            t: check_read_back(app_db(t), traffic,
+                               f"replicated counter {t}", scan=False)
+            for t in ("A", "B")}
+        t1 = time.time()
+        backup = call("B", "backup_db_to_s3", db_name=REPL_DB,
+                      s3_bucket="s3://replicated",
+                      s3_backup_dir=f"backups/{REPL_DB}")
+        report["backup_s"] = time.time() - t1
+        t1 = time.time()
+        restored = call("D", "restore_db_from_s3", db_name=REPL_DB,
+                        s3_bucket="s3://replicated",
+                        s3_backup_dir=f"backups/{REPL_DB}")
+        report["restore_s"] = time.time() - t1
+        log.owner[id(app_db("D").db._backend)] = "D"
+        if digests("D") != files["B"] or backup["seq"] != seqs["B"] \
+                or restored["seq"] != seqs["B"] or seq("D") != seqs["B"]:
+            raise AssertionError(f"replicated counter: restore {restored} "
+                                 f"of backup {backup}")
+        rng = np.random.default_rng(901)
+        sample = np.sort(rng.choice(traffic["touched"], min(
+            REPL_SAMPLE_KEYS, len(traffic["touched"])), replace=False))
+        report["read_back"]["D"] = check_read_back(
+            app_db("D"), traffic, "replicated counter D", ids=sample,
+            scan=False)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        bg = {t: (app_db(t).db._bg_compaction_error,
+                  app_db(t).db._bg_compaction_failures,
+                  app_db(t).db._bg_flush_failures) for t in ("A", "B", "C")}
+    finally:
+        log.uninstall()
+        ioloop.run_sync(pool.close())
+        for replicator, handler, server in nodes.values():
+            server.stop()
+            handler.close()
+            replicator.stop()
+        s3.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        with objectstore._store_cache_lock:
+            objectstore._store_cache.clear()
+        _sort_flag(None)
+    if log.errors:
+        raise AssertionError(f"replicated counter: compactions raised "
+                             f"{log.errors}")
+    if any(err is not None or fails for err, fails, _fl in bg.values()) \
+            or any(fl for _e, _f, fl in bg.values()):
+        raise AssertionError(f"replicated counter: background errors {bg}")
+    per = {t: log.of(t) for t in ("A", "B", "C", "D")}
+    stray = [x for x in log.launches if x[1] not in ("A", "B", "D")]
+    if stray:
+        raise AssertionError(f"replicated counter: launches outside the "
+                             f"card replicas' compactions {stray[:8]}")
+    for tag in ("A", "B"):
+        p = per[tag]
+        k2 = {k: v for k, v in p["launches"].items()
+              if k.startswith("fused_resolve@")}
+        if k2.get("fused_resolve@background", 0) < 1 \
+                or k2.get("fused_resolve@compact_db", 0) < 1:
+            raise AssertionError(f"replicated counter {tag}: K2 from "
+                                 f"{p['launches']}")
+        n_k2 = sum(k2.values())
+        n_k3 = sum(v for k, v in p["launches"].items()
+                   if k.startswith("bloom_build@"))
+        n_k1 = sum(v for k, v in p["launches"].items()
+                   if k.startswith("bitonic_sort@"))
+        if n_k2 != p["in_ram"] + p["stream_chunks"] \
+                or p["stream_chunks"] != p["backend_chunks"] \
+                or p["in_ram"] != p["in_ram_by_backend"] \
+                or n_k3 != p["in_ram_files"] or n_k1 != 0:
+            raise AssertionError(f"replicated counter {tag}: K2 {n_k2}, K3 "
+                                 f"{n_k3}, K1 {n_k1} against {p}")
+    if per["C"]["launches"] or per["C"]["calls"] < 1:
+        raise AssertionError(f"replicated counter C: {per['C']}")
+    report["compactions"] = per
+    report["launches"] = launches
+    return report, launches
 
 
 def main() -> int:
@@ -2899,6 +3304,11 @@ def main() -> int:
         remote_cli, remote_cli_launches = remote_worker_cli(
             dev, prepared, work_dir, card)
         emit({"phase": "remote_worker_cli", **remote_cli})
+        # ---- 4h. the replicated shard and its admin plane --------------
+        repl, repl_launches = replicated_counter(
+            dev, engine_traffic(run_entries=REPL_RUN_ENTRIES), work_dir, card)
+        emit({"phase": "replicated_counter", "elapsed_s":
+              time.time() - _STARTED, **repl})
         cost = instrumentation_cost()
         per_stream = stream["backends"]["fused"]["counters"]
         emit({"phase": "instrumented_seconds", "card": card,
@@ -2932,6 +3342,7 @@ def main() -> int:
         "engine_db_ingest": eng_in_launches,
         "remote_worker": remote_launches,
         "remote_worker_cli": remote_cli_launches,
+        "replicated_counter": repl_launches,
     }
     launches_by_path = {p: {k: c[k] for k in sources}
                         for p, c in launches_by_path.items()}

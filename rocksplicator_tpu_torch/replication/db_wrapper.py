@@ -1,0 +1,186 @@
+"""DbWrapper: the 4-method seam between replication and storage.
+(The port's copy of ``rocksplicator_tpu/replication/db_wrapper.py``.)
+
+Reference: rocksdb_replicator/db_wrapper.h:6-15. **This is the boundary the
+card's compaction backend plugs into**: replication never touches
+the engine directly, so a wrapper can route writes/compaction through
+offloaded paths — or, for CDC observers, publish updates instead of
+persisting them (cdc_admin/cdc_application_db.cpp:15-41).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterator, List, Optional, Tuple
+
+from ..storage.engine import DB
+from ..storage.records import WriteBatch, decode_batch
+
+
+def execute_read_op(reader, op: str, keys=None, start=None,
+                    count=None) -> list:
+    """The ONE home of get/multi_get/scan dispatch semantics, shared by
+    every read surface (`ReplicatedDB._do_read`, `ApplicationDB.read`)
+    so the RPC and in-process paths cannot diverge. ``reader`` exposes
+    ``get`` / ``multi_get`` / ``scan(start, limit)``."""
+    if op == "get":
+        key = (keys[0] if keys else None) \
+            if isinstance(keys, (list, tuple)) else keys
+        if key is None:
+            raise ValueError("get requires a key")
+        return [reader.get(bytes(key))]
+    if op == "multi_get":
+        return reader.multi_get([bytes(k) for k in (keys or [])])
+    if op == "scan":
+        limit = 10 if count is None else max(1, int(count))
+        s = bytes(start) if start is not None else None
+        return [[k, v] for k, v in reader.scan(s, limit)]
+    raise ValueError(f"unknown read op {op!r}")
+
+
+class DbWrapper:
+    """Abstract seam (db_wrapper.h)."""
+
+    def write_to_leader(self, batch: WriteBatch) -> int:
+        """Apply a leader-side write. Returns the batch's start seq."""
+        raise NotImplementedError
+
+    def write_to_leader_many(self, batches) -> int:
+        """Apply a GROUP of leader-side writes in order; returns the
+        FIRST batch's start seq (each batch occupies its own contiguous
+        seq range after it). Wrappers with a batched engine path
+        override this to amortize per-write costs (lock, WAL flush);
+        the default preserves the one-by-one contract."""
+        first = None
+        for b in batches:
+            seq = self.write_to_leader(b)
+            if first is None:
+                first = seq
+        if first is None:
+            raise ValueError("write_to_leader_many: empty group")
+        return first
+
+    def get_updates_from_leader(
+        self, since_seq: int
+    ) -> Iterator[Tuple[int, bytes]]:
+        """Iterator (cursor) of (start_seq, raw_batch_bytes) for batches
+        with start_seq >= since_seq. The replicator caches live cursors
+        between long-poll requests (replicated_db.cpp:577-611)."""
+        raise NotImplementedError
+
+    def latest_sequence_number(self) -> int:
+        raise NotImplementedError
+
+    def latest_sequence_number_relaxed(self) -> int:
+        """Lock-free/stale-tolerant seq read for introspection paths that
+        must never block behind flush/compaction holding the storage
+        lock. Wrappers without a cheap relaxed read fall back to the
+        locking one."""
+        return self.latest_sequence_number()
+
+    def handle_replicate_response(self, raw_data: bytes, timestamp_ms: Optional[int]) -> None:
+        """Apply one replicated update locally (follower path)."""
+        raise NotImplementedError
+
+    def handle_replicate_updates(self, updates) -> None:
+        """Apply a GROUP of replicated updates (one pull response) in
+        order. Wrappers with a batched write path override this to
+        amortize per-record costs; the default preserves the one-by-one
+        contract for existing wrappers (test proxies, CDC observers)."""
+        for u in updates:
+            self.handle_replicate_response(
+                bytes(u["raw_data"]), u.get("timestamp"))
+
+    # -- serving reads (bounded-staleness follower reads) ------
+    # Wrappers that persist locally expose the engine's read surface so
+    # any replica — not just the leader — can serve reads; CDC observers
+    # and other non-persisting wrappers keep the default and the read
+    # handler turns it into a clean RPC error.
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        raise NotImplementedError("wrapper does not serve reads")
+
+    def multi_get(self, keys: List[bytes]) -> List[Optional[bytes]]:
+        return [self.get(k) for k in keys]
+
+    def scan(self, start: Optional[bytes], limit: int
+             ) -> List[Tuple[bytes, bytes]]:
+        raise NotImplementedError("wrapper does not serve scans")
+
+    # -- observability (engine introspection gauges) -----------
+
+    def gauge_target(self) -> Optional[DB]:
+        """The engine whose pull-model gauges should be registered for
+        this shard (``engine.register_db_gauges``), or None for wrappers
+        with no local engine (CDC observers, test proxies)."""
+        return None
+
+
+class StorageDbWrapper(DbWrapper):
+    """Default wrapper over the LSM engine (rocksdb_wrapper.{h,cpp}):
+    write → db.write; updates → db.get_updates_since; replicate response →
+    decode raw batch, apply locally keeping the embedded timestamp so
+    chained downstream followers still see the leader's stamp."""
+
+    def __init__(self, db: DB):
+        self.db = db
+
+    def write_to_leader(self, batch: WriteBatch) -> int:
+        return self.db.write(batch)
+
+    def write_to_leader_many(self, batches) -> int:
+        return self.db.write_many([(b, None) for b in batches])
+
+    def get_updates_from_leader(
+        self, since_seq: int
+    ) -> Iterator[Tuple[int, bytes]]:
+        # resumable tail cursor (resumable=True): the serve path's
+        # IterCache keeps it across pulls even when a response drains to
+        # the live tail, so steady-state serving never re-scans the
+        # active WAL segment
+        return self.db.get_updates_cursor(since_seq)
+
+    def latest_sequence_number(self) -> int:
+        return self.db.latest_sequence_number()
+
+    def latest_sequence_number_relaxed(self) -> int:
+        return self.db.latest_sequence_number_relaxed()
+
+    def handle_replicate_response(self, raw_data: bytes, timestamp_ms: Optional[int]) -> None:
+        # The raw batch still carries the leader's LOG_DATA timestamp, so
+        # applying it verbatim preserves the stamp for chained downstream
+        # followers (reference re-stamps explicitly; here the bytes already
+        # contain it). Passing the raw bytes through skips the WAL
+        # re-encode — decode + encode per applied update was pure waste on
+        # the follower apply hot path.
+        batch = decode_batch(raw_data)
+        self.db.write(batch, encoded=bytes(raw_data))
+
+    def handle_replicate_updates(self, updates) -> None:
+        """Batched apply: one engine write_many per pull response — one
+        storage-lock pass and ONE WAL flush for the whole group (the
+        per-record flush syscall dominated the apply hot path once
+        leader writes pipelined)."""
+        items = []
+        for u in updates:
+            raw = bytes(u["raw_data"])
+            items.append((decode_batch(raw), raw))
+        self.db.write_many(items)
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        return self.db.get(key)
+
+    def multi_get(self, keys: List[bytes]) -> List[Optional[bytes]]:
+        return self.db.multi_get(keys)
+
+    def scan(self, start: Optional[bytes], limit: int
+             ) -> List[Tuple[bytes, bytes]]:
+        out: List[Tuple[bytes, bytes]] = []
+        for k, v in self.db.new_iterator(start=start):
+            out.append((k, v))
+            if len(out) >= limit:
+                break
+        return out
+
+    def gauge_target(self) -> Optional[DB]:
+        return self.db

@@ -1,11 +1,13 @@
 """The port's flag registry — its own copy of the part of
-``rocksplicator_tpu/utils/flags.py`` it uses: string flags with a default,
+``rocksplicator_tpu/utils/flags.py`` it uses: typed flags with a default,
 a process-wide override (``FLAGS.set``, ``FLAGS.reset``), and the
 ``RSTPU_FLAG_<NAME>`` environment variable, which, as in the JAX package,
 is read once: when the flag is defined, at the import of the module that
 defines it. The port defines ``sort_backend`` in
-``ops/compaction_kernel.py``. ``_coerce`` is the JAX package's value
-coercion, which the storage engine's ``set_options`` uses.
+``ops/compaction_kernel.py`` and the admin handler ``s3_direct_io``.
+``_coerce`` is the JAX package's value coercion: flag values take their
+default's type through it, and the storage engine's ``set_options`` uses
+it.
 """
 
 from __future__ import annotations
@@ -16,24 +18,26 @@ from typing import Any, Dict, Optional
 
 class FlagRegistry:
     def __init__(self) -> None:
-        self._defaults: Dict[str, str] = {}
-        self._values: Dict[str, str] = {}
+        self._defaults: Dict[str, Any] = {}
+        self._values: Dict[str, Any] = {}
 
-    def define(self, name: str, default: str) -> None:
+    def define(self, name: str, default: Any, help: str = "") -> None:
         """Define a flag; a second definition is a no-op, so a module can
-        be imported again."""
+        be imported again. The environment and ``set`` are coerced to the
+        default's type, as in the JAX package."""
         if name not in self._defaults:
             self._defaults[name] = default
-            self._values[name] = os.environ.get(
-                "RSTPU_FLAG_" + name.upper(), default)
+            env = os.environ.get("RSTPU_FLAG_" + name.upper())
+            self._values[name] = (default if env is None
+                                  else _coerce(env, type(default)))
 
-    def get(self, name: str) -> str:
+    def get(self, name: str) -> Any:
         return self._values[name]
 
-    def set(self, name: str, value: str) -> None:
+    def set(self, name: str, value: Any) -> None:
         if name not in self._defaults:
             raise KeyError(name)
-        self._values[name] = str(value)
+        self._values[name] = _coerce(value, type(self._defaults[name]))
 
     def reset(self, name: Optional[str] = None) -> None:
         for n in [name] if name else list(self._defaults):

@@ -1,11 +1,13 @@
 """Small host helpers — the port's copy of the part of
 ``rocksplicator_tpu/utils/misc.py`` that the storage engine, the RPC
-transport and the coordinator use."""
+transport, the coordinator, replication and the file watcher use."""
 
 from __future__ import annotations
 
 import os
 import socket
+import time
+from typing import Optional
 
 
 def local_ip() -> str:
@@ -23,6 +25,18 @@ def local_ip() -> str:
         return "127.0.0.1"
     finally:
         s.close()
+
+
+def now_ms() -> int:
+    return int(time.time() * 1000)
+
+
+def read_file(path: str) -> Optional[bytes]:
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except OSError:
+        return None
 
 
 def write_file_atomic(path: str, data: bytes) -> None:

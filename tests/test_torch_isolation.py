@@ -5,8 +5,9 @@ compacts shards, its post-ingest BatchCompactor compacts stub DBs past
 an armed failpoint, and its storage engine opens, writes, flushes,
 compacts and reopens a DB with the host and the card's backends, and its
 remote compaction tier (a coordinator, a worker on the card's backend, a
-leader) offloads one compaction, on the CPU with both blocked, counting
-into the port's own Stats.
+leader) offloads one compaction, and a replicated shard (a leader and a
+follower behind admin handlers) adds a DB, replicates, compacts and reads
+back, on the CPU with both blocked, counting into the port's own Stats.
 
 The import check runs in a subprocess, because this test process has
 imported JAX already (tests/conftest.py)."""
@@ -64,7 +65,17 @@ seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
         "compaction_remote", "compaction_remote.jobs",
         "compaction_remote.queue", "compaction_remote.worker",
         "compaction_remote.install", "compaction_remote.dispatch",
-        "tools", "tools.compaction_worker"}
+        "tools", "tools.compaction_worker",
+        "utils.segment_utils", "utils.object_lock", "utils.concurrent_map",
+        "utils.timer", "utils.file_watcher", "utils.dbconfig",
+        "replication", "replication.wire", "replication.ack_window",
+        "replication.max_number_box", "replication.cond_var",
+        "replication.db_wrapper", "replication.iter_cache",
+        "replication.handler", "replication.pull_mux",
+        "replication.replicated_db", "replication.replicator",
+        "replication.test_db_proxy", "storage.backup", "storage.archive",
+        "admin.application_db", "admin.db_manager",
+        "admin.backup_manager", "admin.handler"}
 missing = {m for m in seam if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 print("IMPORTED", len(names))
@@ -213,7 +224,7 @@ print("ENGINE_ON_CPU")
 # card's backend (its plain versions on the CPU) and a port leader that
 # offloads one compaction and reads it back; the worker's default backend
 # is the card, so without CUDA it refuses to build
-import threading
+import threading, time
 from rocksplicator_tpu_torch.cluster import (CoordinatorClient,
                                              CoordinatorServer)
 from rocksplicator_tpu_torch.compaction_remote import (
@@ -268,6 +279,72 @@ with tempfile.TemporaryDirectory() as d:
         c.close()
     server.stop()
 print("REMOTE_ON_CPU")
+
+# the replicated shard: a leader and a follower, each a Replicator and an
+# AdminHandler on an RpcServer with the card's backend on the CPU, add a
+# DB through admin RPCs, replicate in mode 1, compact and read back; the
+# default handler (the card) refuses to start without CUDA
+from rocksplicator_tpu_torch.admin import AdminHandler
+from rocksplicator_tpu_torch.replication import ReplicationFlags, Replicator
+from rocksplicator_tpu_torch.rpc import IoLoop, RpcClientPool, RpcServer
+with tempfile.TemporaryDirectory() as d:
+    replicator = Replicator(port=0)
+    try:
+        AdminHandler(d + "/nocuda", replicator)
+    except RuntimeError as exc:
+        assert "CUDA is not available" in str(exc), exc
+    else:
+        raise AssertionError("a card admin handler started without CUDA")
+    finally:
+        replicator.stop()
+    assert not os.path.exists(d + "/nocuda/meta_db")
+    flags = ReplicationFlags(server_long_poll_ms=400)
+    nodes = []
+    for name in ("leader", "follower"):
+        replicator = Replicator(port=0, flags=flags)
+        handler = AdminHandler(
+            d + "/" + name, replicator, device="cpu",
+            options_generator=lambda s: DBOptions(
+                merge_operator=UInt64AddOperator()))
+        server = RpcServer(port=0, ioloop=replicator.ioloop)
+        server.add_handler(handler)
+        server.start()
+        nodes.append((replicator, handler, server))
+    pool, ioloop = RpcClientPool(), IoLoop.default()
+    def call(node, method, **args):
+        async def go():
+            return await pool.call("127.0.0.1", node[2].port, method, args,
+                                   timeout=60)
+        return ioloop.run_sync(go())
+    leader, follower = nodes
+    call(leader, "add_db", db_name="seg00001", role="LEADER",
+         replication_mode=1)
+    call(follower, "add_db", db_name="seg00001", role="FOLLOWER",
+         upstream_ip="127.0.0.1", upstream_port=leader[0].port)
+    app = leader[1].db_manager.get_db("seg00001")
+    for r in range(3):
+        batch = WriteBatch()
+        for i in range(40):
+            batch.merge(b"counter:%08d" % i, pk(r + 1))
+        app.write(batch)
+    deadline = time.monotonic() + 60
+    while call(follower, "get_sequence_number",
+               db_name="seg00001")["seq_num"] != 120:
+        assert time.monotonic() < deadline, "the follower never caught up"
+        time.sleep(0.02)
+    keys = [b"counter:%08d" % i for i in range(40)]
+    for node in nodes:
+        call(node, "compact_db", db_name="seg00001")
+        db = node[1].db_manager.get_db("seg00001")
+        assert type(db.db._backend).__name__ == "GpuCompactionBackend"
+        assert db.multi_get(keys) == [pk(6)] * 40
+    assert Stats.get().get_counter("replicator.pull_updates_applied") == 3
+    ioloop.run_sync(pool.close())
+    for replicator, handler, server in nodes:
+        server.stop()
+        handler.close()
+        replicator.stop()
+print("REPLICATED_ON_CPU")
 rc = chip_smoke.main()
 assert rc != 0, rc
 print("SMOKE_REFUSES", rc)
@@ -293,6 +370,7 @@ def test_port_imports_without_jax_and_refuses_cpu_fallback():
     assert "BATCH_COMPACTOR_ON_CPU" in res.stdout
     assert "ENGINE_ON_CPU" in res.stdout
     assert "REMOTE_ON_CPU" in res.stdout
+    assert "REPLICATED_ON_CPU" in res.stdout
     assert "SMOKE_REFUSES" in res.stdout
     assert '"ok"' not in res.stdout
 
@@ -329,8 +407,8 @@ def test_port_failpoint_sites_are_registered():
     start_span``, every counter name follows the grammar, and every
     ``allow()`` pragma the engine carries from the JAX package suppresses
     a finding. The registry is the JAX package's whole, so the entries
-    whose seams live in layers the port has not taken over yet (RPC,
-    replication, ...) have no call site here: those, and only those, are
+    whose seams live in layers the port has not taken over yet (kafka,
+    the cluster's controller, ...) have no call site here: those, and only those, are
     reported as dead entries."""
     from rocksplicator_tpu_torch.testing.failpoint_registry import REGISTRY
 
@@ -359,5 +437,9 @@ def test_port_failpoint_sites_are_registered():
               "rpc.connect", "rpc.frame.send", "rpc.frame.recv",
               "rpc.deadline.check", "admission.shed",
               "coordinator.wal.append", "coordinator.reap",
-              "coordinator.heartbeat"}
+              "coordinator.heartbeat",
+              # replication and the admin plane
+              "ack.expire", "repl.apply", "repl.pull", "repl.read",
+              "repl.read.serve", "repl.mux.apply", "repl.mux.serve",
+              "admin.ingest.engine", "admin.ingest.meta"}
     assert dead == set(REGISTRY) - ported
