@@ -74,8 +74,8 @@ PyTorch built for CUDA. It
    key of the fused DB read back through ``multi_get`` and a full scan
    against a numpy oracle, the native library loaded, host-clock seconds
    of each write run, flush and compaction); the same traffic at half
-   the depth (4 x 2^19 ops, under half the default memory budget) from 4
-   writer threads into a DB with background flush and compaction and its
+   the depth (4 x 2^18 ops, under a quarter of the default memory
+   budget) from 4 writer threads into a DB with background flush and compaction and its
    default backend, the card (``engine_db_background``: K2 launched from
    the compaction thread before ``compact_range``, no background failure,
    every write read back, write() p50 and p99); and the 12 DBs of
@@ -128,7 +128,7 @@ PyTorch built for CUDA. It
    ``AdminHandler`` on a port ``RpcServer``; A leads on the card, B
    follows on the card, C follows with ``gpu_compaction=False`` (the
    host's comparator), D starts empty on the card; the counter service's
-   options, ack mode 1; DBs opened by ``add_db`` RPCs; 4 x 2^19 counter
+   options, ack mode 1; DBs opened by ``add_db`` RPCs; 4 x 2^18 counter
    ops pipelined through A's ``ApplicationDB.write_async``; ``compact_db``
    on A, B and C, ``backup_db_to_s3`` of B into the port's S3 stub and
    ``restore_db_from_s3`` into D. Every key reads back from A and B equal
@@ -138,6 +138,21 @@ PyTorch built for CUDA. It
    launches nothing, no compaction raises (write() ack p50 / p99, ops/s,
    the followers' lag, each replica's compactions and compact_db
    seconds, backup and restore seconds);
+4i. drives the counter service as the README's quick start starts it
+   (``counter_service``): two port node processes (``python -m
+   rocksplicator_tpu_torch.examples.counter_service.counter_service``,
+   the default device, the card) from one static shard map of 2 shards,
+   each leading one and following the other; 2^21 counters bulk-loaded
+   by ``add_s3_sst_files_to_db(compact_db_after_load=True)`` on every
+   replica; the port's ``stress_test`` (8 threads x 16384 routed gets and
+   bumps) against one node with 0 errors; ``compact_db`` on every
+   replica; every bumped counter and a seeded sample read back from
+   every replica equal to the numpy oracle; both status servers'
+   ``/stats.txt`` and ``/hotkeys.txt``; SIGTERM, exit 0 and each
+   process's launch counts (K2 and K3 at least 2 each); each replica's
+   directory scanned on the host, leader equal to follower and to the
+   oracle; then the replication harness as two processes
+   (``performance``: its throughput line and launch counts);
 
 Every phase raises on failure and the script then exits non-zero. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -1399,11 +1414,12 @@ def batch_compactor(dev, prepared: tuple, card: str) -> tuple:
 # a run; half of one launch (MAX_TPU_ENTRIES) in all, to keep the
 # command's time
 ENGINE_RUN_ENTRIES = 1 << 19
-# engine_db_background's runs: half of MAX_TPU_ENTRIES, to keep the
-# command's time, under half the default 256 MiB compaction budget, so
-# that its compactions stream as they do at full depth under the default
-ENGINE_BG_RUN_ENTRIES = 1 << 19
-ENGINE_BG_BUDGET_BYTES = 128 << 20
+# engine_db_background's runs: a quarter of MAX_TPU_ENTRIES, to keep the
+# command's time, under a quarter of the default 256 MiB compaction
+# budget, so that its compactions stream as they do at full depth under
+# the default
+ENGINE_BG_RUN_ENTRIES = 1 << 18
+ENGINE_BG_BUDGET_BYTES = 64 << 20
 ENGINE_BATCH = 1024
 ENGINE_WRITERS = 4
 # multi_get read-back in slices of this many keys
@@ -1724,8 +1740,8 @@ def engine_db(dev, traffic: dict, work_dir: str, card: str,
 def engine_db_background(dev, traffic: dict, work_dir: str,
                          card: str) -> tuple:
     """The counter traffic (``traffic``: 4 runs of ENGINE_BG_RUN_ENTRIES,
-    half engine_db's depth, under ENGINE_BG_BUDGET_BYTES, half the default
-    budget) from ENGINE_WRITERS threads on disjoint key ranges into one
+    half engine_db's depth, under ENGINE_BG_BUDGET_BYTES, a quarter of the
+    default budget) from ENGINE_WRITERS threads on disjoint key ranges into one
     DB with background flush and compaction threads, the scheduler on and
     the default backend (the card). Then flush(), wait
     for the compaction thread to go idle, and compact_range(). Every
@@ -2410,10 +2426,11 @@ def remote_worker_cli(dev, prepared: tuple, work_dir: str,
 
 
 # ---- the replicated shard and its admin plane on the card -----------------
-# replicated_counter: 4 runs of this many counter ops (2^21 in all, half of
-# MAX_TPU_ENTRIES: the one cut, of depth), pipelined through the leader's
+# replicated_counter: 4 runs of this many counter ops (2^20 in all, a
+# quarter of MAX_TPU_ENTRIES: the one cut, of depth), pipelined through the
+# leader's
 # ApplicationDB.write_async in WriteBatches of ENGINE_BATCH ops
-REPL_RUN_ENTRIES = 1 << 19
+REPL_RUN_ENTRIES = 1 << 18
 REPL_DB = "counter00000"
 REPL_SAMPLE_KEYS = 1 << 16
 # the engine's default memtable (named so a rehearsal can shrink it)
@@ -2551,7 +2568,7 @@ def replicated_counter(dev, traffic: dict, work_dir: str,
     compaction so the card's files compare with the host's), ack mode 1.
 
     DBs open by add_db RPCs through a port RpcClientPool; ``traffic``
-    (4 x REPL_RUN_ENTRIES ops, key space 2^20) is pipelined through A's
+    (4 x REPL_RUN_ENTRIES ops, key space 2^19) is pipelined through A's
     ApplicationDB.write_async in WriteBatches of ENGINE_BATCH under the
     default write window; B and C catch up to A's sequence number;
     compact_db runs on A, B and C; B is backed up by backup_db_to_s3 into
@@ -2795,6 +2812,554 @@ def replicated_counter(dev, traffic: dict, work_dir: str,
     report["compactions"] = per
     report["launches"] = launches
     return report, launches
+
+
+# ---- the counter service as the README's quick start starts it ------------
+# counter_service: two port node processes from the quick start's static
+# shard map (segment "counter", 2 shards), bulk-loaded with COUNTERS
+# counters through add_s3_sst_files_to_db on every replica, then the
+# port's stress_test, compact_db, reads, the status plane and SIGTERM
+COUNTERS = 1 << 21
+COUNTER_SHARDS = 2
+COUNTER_FILES = 4  # SST files a shard's bulk load
+COUNTER_SEED = 1010
+STRESS_THREADS = 8
+STRESS_REQUESTS = 16384
+COUNTER_SAMPLE = 16384  # loaded counters read back from every replica
+COUNTER_READ_WINDOW = 512  # get_counter calls in flight at once
+COUNTER_DRAIN_S = 10.0  # GracefulShutdownHandler's default drain timeout
+# the nodes run the quick start's command; the device is its default,
+# the card (a rehearsal on the CPU adds "--device", "cpu" and lowers the
+# launch floor)
+COUNTER_NODE_ARGS: tuple = ()
+COUNTER_MIN_LAUNCHES = 2
+# the performance harness's sub-phase, warm-up and linger cut to seconds
+PERF_ARGS = ("--num_shards", "8", "--num_keys_per_shard_thread", "4096",
+             "--value_size", "1024")
+PERF_WARMUP_S = 3
+PERF_LINGER_S = 3
+
+
+def _free_port(pair: bool = False) -> int:
+    """A free TCP port on 127.0.0.1 (``pair``: the one above it is free
+    too, for the service port + 1 replication convention)."""
+    import socket
+
+    for _ in range(200):
+        socks = []
+        try:
+            s = socket.socket()
+            socks.append(s)
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            if pair:
+                t = socket.socket()
+                socks.append(t)
+                t.bind(("127.0.0.1", port + 1))
+            return port
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError("no free port pair")
+
+
+def _child_env(**extra) -> dict:
+    """The environment of a child process of the port: the checkout on
+    its path, this host's loopback as its address."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RSTPU_LOCAL_IP="127.0.0.1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    env.update(extra)
+    return env
+
+
+def _wait_line(proc, log_path: str, prefix: str, timeout: float) -> str:
+    """The first line of ``log_path`` that starts with ``prefix``; raises
+    when the process exits or the time runs out first."""
+    deadline = time.time() + timeout
+    while True:
+        with open(log_path) as f:
+            for line in f:
+                if line.startswith(prefix):
+                    return line.strip()
+        if proc.poll() is not None:
+            raise AssertionError(f"{prefix}: the process exited "
+                                 f"{proc.returncode}: {_tail(log_path)}")
+        if time.time() > deadline:
+            raise AssertionError(f"{prefix}: no such line in {timeout} s: "
+                                 f"{_tail(log_path)}")
+        time.sleep(0.1)
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def _http_get(port: int, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.read().decode()
+
+
+def _stats_counters(text: str) -> dict:
+    """{name with tags: total} of the counter lines of /stats.txt."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("counter "):
+            name, rest = line[8:].rsplit(" total=", 1)
+            out[name] = float(rest.split()[0])
+    return out
+
+
+def stress_streams(threads: int, requests: int, counters: int,
+                   read_ratio: float):
+    """The stress test's requests replayed from its seeded streams
+    (``random.Random(tid)`` a thread): the bumps per counter index, and
+    the count of gets."""
+    import collections
+    import random
+
+    bumps, gets = collections.Counter(), 0
+    for tid in range(threads):
+        rng = random.Random(tid)
+        for _ in range(requests):
+            i = rng.randrange(counters)
+            if rng.random() < read_ratio:
+                gets += 1
+            else:
+                bumps[i] += 1
+    return bumps, gets
+
+
+def counter_service(work_dir: str, card: str) -> tuple:
+    """The README's quick start on the card: two port counter-service
+    processes (``python -m rocksplicator_tpu_torch.examples.
+    counter_service.counter_service --rocksdb_dir ... --port ...
+    --status_port ... --shard_map_path ...``, the default device, the
+    card) from one static shard map: A leads shard 00000 and follows
+    00001, B the reverse. Each writes its launch counts at exit
+    (RSTPU_LAUNCH_COUNTS_FILE).
+
+    1. bulk load: COUNTERS counters ``counter-<i>`` with seeded int64
+       values, each in the shard the port's ``shard_for`` names, written
+       per shard as COUNTER_FILES SST files by the port's SSTWriter
+       (10 bits a key) into a local object store; add_s3_sst_files_to_db(
+       compact_db_after_load=True) on every replica at once, each ending
+       in its node's BatchCompactor (K2, K3);
+    2. the port's stress_test against A (STRESS_THREADS threads of
+       STRESS_REQUESTS routed gets and bumps over every counter): rc 0,
+       errors=0;
+    3. compact_db by RPC on every replica, timed, with the admin span
+       tree from /traces;
+    4. once each follower's sequence number equals its leader's,
+       get_counter without routing from the leader and the follower of
+       each shard, for COUNTER_SAMPLE seeded loaded counters and then
+       every counter the stress run bumped (its streams replayed): each
+       equals the numpy oracle, load + bumps;
+    5. /stats.txt and /hotkeys.txt of both status servers: the port's
+       compaction counters nonzero, the hot keys non-empty and the top
+       ones among the bumped counters;
+    6. SIGTERM to both: each exits 0 within the drain timeout, its launch
+       counts written, K2 and K3 at least COUNTER_MIN_LAUNCHES each;
+    7. each replica's directory reopened by a port DB on the host backend
+       and scanned: a shard's leader and follower hold the same pairs,
+       equal to the oracle.
+    """
+    import os
+    import signal
+    import struct
+
+    import numpy as np
+
+    from rocksplicator_tpu_torch.examples.counter_service.counter_router \
+        import shard_for
+    from rocksplicator_tpu_torch.rpc import IoLoop, RpcClientPool
+    from rocksplicator_tpu_torch.storage import DB, DBOptions
+    from rocksplicator_tpu_torch.storage.merge import UInt64AddOperator
+    from rocksplicator_tpu_torch.storage.native_compaction import (
+        NativeCompactionBackend)
+    from rocksplicator_tpu_torch.storage.records import OpType
+    from rocksplicator_tpu_torch.storage.sst import SSTWriter
+    from rocksplicator_tpu_torch.utils.segment_utils import (
+        segment_to_db_name)
+
+    root = os.path.join(work_dir, "counter_service")
+    os.makedirs(root)
+    report = {"card": card, "counters": COUNTERS, "shards": COUNTER_SHARDS,
+              "files_per_shard": COUNTER_FILES, "seed": COUNTER_SEED}
+    seconds = {}
+    t_phase = time.time()
+
+    # ---- the data and the shard map ------------------------------------
+    t0 = time.time()
+    rng = np.random.default_rng(COUNTER_SEED)
+    values = rng.integers(-(1 << 40), 1 << 40, COUNTERS, dtype=np.int64)
+    names = [f"counter-{i}" for i in range(COUNTERS)]
+    shard_of = np.fromiter((shard_for(n, COUNTER_SHARDS) for n in names),
+                           dtype=np.int64, count=COUNTERS)
+    store = os.path.join(root, "store")
+    pack = struct.Struct("<q").pack
+    sst_bytes = 0
+    for s in range(COUNTER_SHARDS):
+        ids = sorted(np.nonzero(shard_of == s)[0].tolist(),
+                     key=lambda i: names[i].encode())
+        prefix = os.path.join(store, "counter", f"{s:05d}")
+        os.makedirs(prefix)
+        for f in range(COUNTER_FILES):
+            path = os.path.join(prefix, f"part-{f}.tsst")
+            w = SSTWriter(path, bits_per_key=10)
+            for i in ids[f::COUNTER_FILES]:
+                w.add(names[i].encode(), 0, OpType.PUT, pack(int(values[i])))
+            w.finish()
+            sst_bytes += os.path.getsize(path)
+    report["per_shard"] = np.bincount(shard_of,
+                                      minlength=COUNTER_SHARDS).tolist()
+    report["sst_bytes"] = sst_bytes
+    seconds["write_ssts"] = time.time() - t0
+    ports = {t: _free_port(pair=True) for t in ("A", "B")}
+    status = {t: _free_port() for t in ("A", "B")}
+    shard_map = {"counter": {
+        "num_shards": COUNTER_SHARDS,
+        f"127.0.0.1:{ports['A']}:az1": ["00000:M", "00001:S"],
+        f"127.0.0.1:{ports['B']}:az1": ["00000:S", "00001:M"]}}
+    map_path = os.path.join(root, "shard_map.json")
+    with open(map_path, "w") as f:
+        json.dump(shard_map, f)
+    roles = {0: ("A", "B"), 1: ("B", "A")}  # shard -> (leader, follower)
+
+    procs, logs, counts = {}, {}, {}
+    pool, ioloop = RpcClientPool(), IoLoop.default()
+
+    def call(tag, method, timeout=600, **args):
+        async def go():
+            return await pool.call("127.0.0.1", ports[tag], method, args,
+                                   timeout=timeout)
+        return ioloop.run_sync(go())
+
+    def calls(requests, timeout=600):
+        """(tag, method, args) requests, COUNTER_READ_WINDOW in flight at
+        once; their results in order, each with its host seconds."""
+        import asyncio
+
+        async def one(t, m, a):
+            t0 = time.time()
+            out = await pool.call("127.0.0.1", ports[t], m, a,
+                                  timeout=timeout)
+            return out, time.time() - t0
+
+        async def go(part):
+            return await asyncio.gather(*(one(*r) for r in part))
+        out = []
+        for s in range(0, len(requests), COUNTER_READ_WINDOW):
+            out += ioloop.run_sync(go(requests[s:s + COUNTER_READ_WINDOW]))
+        return out
+
+    try:
+        # ---- start: the quick start's two commands -----------------------
+        t0 = time.time()
+        for tag in ("A", "B"):
+            logs[tag] = os.path.join(root, f"node_{tag}.log")
+            counts[tag] = os.path.join(root, f"launches_{tag}.json")
+            with open(logs[tag], "w") as out:
+                procs[tag] = subprocess.Popen(
+                    [sys.executable, "-m", "rocksplicator_tpu_torch."
+                     "examples.counter_service.counter_service",
+                     "--rocksdb_dir", os.path.join(root, f"node_{tag}"),
+                     "--port", str(ports[tag]),
+                     "--status_port", str(status[tag]),
+                     "--shard_map_path", map_path, *COUNTER_NODE_ARGS],
+                    stdout=out, stderr=subprocess.STDOUT,
+                    env=_child_env(RSTPU_LAUNCH_COUNTS_FILE=counts[tag]))
+        up = {t: _wait_line(procs[t], logs[t], "counter_service up:", 300)
+              for t in ("A", "B")}
+        for tag, line in up.items():
+            if not line.endswith("dbs=2"):
+                raise AssertionError(f"counter service {tag}: {line}")
+        report["up"] = up
+        seconds["start"] = time.time() - t0
+
+        # ---- 1. bulk load on every replica ------------------------------
+        t0 = time.time()
+        loads = calls([
+            (tag, "add_s3_sst_files_to_db",
+             {"db_name": segment_to_db_name("counter", s),
+              "s3_bucket": "local://" + store,
+              "s3_path": f"counter/{s:05d}/",
+              "compact_db_after_load": True})
+            for s in range(COUNTER_SHARDS) for tag in roles[s]],
+            timeout=900)
+        seconds["load"] = time.time() - t0
+        report["load_results"] = [r for r, _s in loads]
+        report["load_s"] = [s for _r, s in loads]
+
+        def seqs():
+            return {s: tuple(call(t, "get_sequence_number",
+                                  db_name=segment_to_db_name("counter", s))
+                             ["seq_num"] for t in roles[s])
+                    for s in range(COUNTER_SHARDS)}
+        report["seqs_after_load"] = seqs()
+
+        # ---- 2. the port's stress_test against A -------------------------
+        t0 = time.time()
+        stress = subprocess.run(
+            [sys.executable, "-m", "rocksplicator_tpu_torch.examples."
+             "counter_service.stress_test", "--port", str(ports["A"]),
+             "--threads", str(STRESS_THREADS),
+             "--requests", str(STRESS_REQUESTS),
+             "--counters", str(COUNTERS), "--read_ratio", "0.5"],
+            env=_child_env(), capture_output=True, text=True, timeout=1200)
+        seconds["stress"] = time.time() - t0
+        line = [ln for ln in stress.stdout.splitlines()
+                if ln.startswith("stress:")]
+        if stress.returncode != 0 or not line \
+                or not line[-1].endswith("errors=0"):
+            raise AssertionError(f"stress_test: rc {stress.returncode}: "
+                                 f"{stress.stdout[-2000:]}"
+                                 f"{stress.stderr[-2000:]}")
+        report["stress_line"] = line[-1]
+        report["qps"] = float(line[-1].split(" = ")[1].split()[0])
+        bumps, gets = stress_streams(STRESS_THREADS, STRESS_REQUESTS,
+                                     COUNTERS, 0.5)
+        bumped = sorted(bumps)
+        report["stress"] = {
+            "requests": STRESS_THREADS * STRESS_REQUESTS, "gets": gets,
+            "bumps": sum(bumps.values()), "counters_bumped": len(bumped),
+            "bumps_forwarded": sum(v for i, v in bumps.items()
+                                   if shard_of[i] != 0)}
+
+        # ---- 3. compact_db on every replica: the leaders, one a process,
+        #         then the followers -----------------------------------
+        t0 = time.time()
+        compact_s = {}
+        for r in range(2):
+            batch = [(roles[s][r], segment_to_db_name("counter", s))
+                     for s in range(COUNTER_SHARDS)]
+            done = calls([(tag, "compact_db", {"db_name": db})
+                          for tag, db in batch], timeout=900)
+            for (tag, db), (_out, secs) in zip(batch, done):
+                compact_s[f"{tag}/{db}"] = secs
+        report["compact_db_s"] = compact_s
+        seconds["compact_db"] = time.time() - t0
+        report["compact_db_spans"] = {
+            t: _compact_spans(_http_get(status[t], "/traces"))
+            for t in ("A", "B")}
+
+        # ---- 4. read back through the service ----------------------------
+        t0 = time.time()
+        deadline = time.time() + 300
+        while True:
+            now = seqs()
+            if all(a == b for a, b in now.values()):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"counter service: seqs {now}")
+            time.sleep(0.05)
+        report["seqs"] = now
+        oracle = values.copy()
+        for i, v in bumps.items():
+            oracle[i] += v
+        sample = np.sort(np.random.default_rng(COUNTER_SEED + 1).choice(
+            COUNTERS, COUNTER_SAMPLE, replace=False)).tolist()
+        # each node reads its replicas of both shards, the sampled
+        # counters first and the bumped ones last; the two nodes' reads
+        # interleave, so both serve at once
+        per_node = {tag: [(tag, i) for ids in (sample, bumped) for i in ids]
+                    for tag in ("A", "B")}
+        order = [r for pair in zip(per_node["A"], per_node["B"])
+                 for r in pair]
+        got = calls([(tag, "get_counter", {"counter_name": names[i],
+                                           "need_routing": False})
+                     for tag, i in order])
+        for (tag, i), (r, _secs) in zip(order, got):
+            if r["counter_value"] != int(oracle[i]):
+                raise AssertionError(
+                    f"counter service {tag}: {names[i]} reads "
+                    f"{r['counter_value']}, want {int(oracle[i])}")
+        lat = sorted(secs for _r, secs in got)
+        report["reads"] = len(order)
+        report["read_ms_p50_p99"] = [1e3 * lat[len(lat) // 2],
+                                     1e3 * lat[(99 * len(lat)) // 100]]
+        seconds["reads"] = time.time() - t0
+
+        # ---- 5. the status plane -----------------------------------------
+        t0 = time.time()
+        report["status"] = {}
+        bumped_names = {names[i] for i in bumped}
+        for tag in ("A", "B"):
+            ctrs = _stats_counters(_http_get(status[tag], "/stats.txt"))
+            compaction = {k: v for k, v in ctrs.items()
+                          if k.startswith("compaction.")}
+            if not compaction or not all(compaction.values()):
+                raise AssertionError(f"counter service {tag}: compaction "
+                                     f"counters {compaction}")
+            hot = [ln.split()[0] for ln in _http_get(
+                status[tag], "/hotkeys.txt").splitlines() if ln.strip()]
+            if not hot or not set(hot[:10]) <= bumped_names:
+                raise AssertionError(f"counter service {tag}: hot keys "
+                                     f"{hot[:10]}")
+            report["status"][tag] = {"compaction_counters": compaction,
+                                     "hot_keys": len(hot),
+                                     "top_hot_keys": hot[:5]}
+        seconds["status"] = time.time() - t0
+
+        # ---- 6. graceful shutdown ----------------------------------------
+        t0 = time.time()
+        exits = {}
+        for tag in ("A", "B"):
+            procs[tag].send_signal(signal.SIGTERM)
+        for tag in ("A", "B"):
+            try:
+                rc = procs[tag].wait(COUNTER_DRAIN_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"counter service {tag}: no exit "
+                                     f"{COUNTER_DRAIN_S} s after SIGTERM: "
+                                     f"{_tail(logs[tag])}")
+            exits[tag] = {"rc": rc, "seconds": time.time() - t0}
+            if rc != 0:
+                raise AssertionError(f"counter service {tag}: rc {rc}: "
+                                     f"{_tail(logs[tag])}")
+        seconds["shutdown"] = time.time() - t0
+        report["exits"] = exits
+        launches = {}
+        for tag in ("A", "B"):
+            if not os.path.exists(counts[tag]):
+                raise AssertionError(f"counter service {tag}: no launch "
+                                     f"counts written")
+            with open(counts[tag]) as f:
+                launches[tag] = json.load(f)
+            if launches[tag]["fused_resolve"] < COUNTER_MIN_LAUNCHES \
+                    or launches[tag]["bloom_build"] < COUNTER_MIN_LAUNCHES:
+                raise AssertionError(f"counter service {tag}: launches "
+                                     f"{launches[tag]}")
+        report["launches_by_process"] = launches
+    finally:
+        ioloop.run_sync(pool.close())
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # ---- 7. scan every replica on the host -------------------------------
+    t0 = time.time()
+    for s in range(COUNTER_SHARDS):
+        want = sorted((names[i].encode(), pack(int(oracle[i])))
+                      for i in np.nonzero(shard_of == s)[0].tolist())
+        scans = {}
+        for tag in roles[s]:
+            db = DB(os.path.join(root, f"node_{tag}",
+                                 segment_to_db_name("counter", s)),
+                    DBOptions(merge_operator=UInt64AddOperator(),
+                              compaction_backend=NativeCompactionBackend()))
+            try:
+                scans[tag] = list(db.new_iterator())
+            finally:
+                db.close()
+        leader, follower = (scans[t] for t in roles[s])
+        if leader != follower:
+            raise AssertionError(f"counter service shard {s}: leader and "
+                                 f"follower scans differ")
+        if leader != want:
+            raise AssertionError(f"counter service shard {s}: scan differs "
+                                 f"from the oracle")
+    seconds["scan"] = time.time() - t0
+    seconds["phase"] = time.time() - t_phase
+    report["seconds"] = seconds
+    total = {k: sum(c[k] for c in launches.values())
+             for k in ("bitonic_sort", "fused_resolve", "bloom_build")}
+    return report, total
+
+
+def _compact_spans(traces_json: str) -> list:
+    """The admin.compact_db spans of /traces with their descendants:
+    (name, ms) per span of each such trace."""
+    doc = json.loads(traces_json)
+    out = []
+    for trace in doc["traces"]:
+        spans = trace["spans"]
+        if not any(s["name"] == "admin.compact_db" for s in spans):
+            continue
+        out.append([(s["name"], round(s["duration_ms"], 3))
+                    for s in spans])
+    return out
+
+
+def performance(work_dir: str, card: str) -> tuple:
+    """The port's replication throughput harness as two processes, a
+    follower and then a leader, by the module docstring's commands at
+    PERF_ARGS, warm-up and linger cut to seconds: the leader exits 0 and
+    prints its throughput line; the follower, stopped by SIGINT, exits 0
+    (the seqs it last reported are recorded: in ack mode 0 a follower in
+    connect backoff may not catch up within the cut linger). Both write
+    their launch counts."""
+    import os
+    import signal
+
+    root = os.path.join(work_dir, "performance")
+    os.makedirs(root)
+    lp, fp_ = _free_port(), _free_port()
+    counts = {r: os.path.join(root, f"launches_{r}.json")
+              for r in ("leader", "follower")}
+    log = os.path.join(root, "follower.log")
+    mod = "rocksplicator_tpu_torch.replication.performance"
+    t0 = time.time()
+    with open(log, "w") as out:
+        follower = subprocess.Popen(
+            [sys.executable, "-m", mod, "--role", "follower", "--port",
+             str(fp_), "--upstream_port", str(lp), "--db_dir",
+             os.path.join(root, "f"), *PERF_ARGS, *COUNTER_NODE_ARGS],
+            stdout=out, stderr=subprocess.STDOUT,
+            env=_child_env(RSTPU_LAUNCH_COUNTS_FILE=counts["follower"]))
+    try:
+        _wait_line(follower, log, "follower:", 300)
+        leader = subprocess.run(
+            [sys.executable, "-m", mod, "--role", "leader", "--port",
+             str(lp), "--db_dir", os.path.join(root, "l"), *PERF_ARGS,
+             "--warmup_wait_sec", str(PERF_WARMUP_S),
+             "--linger_sec", str(PERF_LINGER_S), *COUNTER_NODE_ARGS],
+            env=_child_env(RSTPU_LAUNCH_COUNTS_FILE=counts["leader"]),
+            capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in leader.stdout.splitlines()
+                 if ln.startswith("leader ")]
+        if leader.returncode != 0 or len(lines) < 2:
+            raise AssertionError(f"performance leader: rc "
+                                 f"{leader.returncode}: "
+                                 f"{leader.stdout[-2000:]}"
+                                 f"{leader.stderr[-2000:]}")
+        follower.send_signal(signal.SIGINT)
+        rc = follower.wait(60)
+        if rc != 0:
+            raise AssertionError(f"performance follower: rc {rc}: "
+                                 f"{_tail(log)}")
+    finally:
+        if follower.poll() is None:
+            follower.kill()
+            follower.wait()
+    launches = {}
+    for role, path in counts.items():
+        with open(path) as f:
+            launches[role] = json.load(f)
+    totals = [ln for ln in open(log).read().splitlines()
+              if ln.startswith("follower total seq:")]
+    report = {"card": card, "args": list(PERF_ARGS),
+              "follower_last_total_seq": totals[-1] if totals else None,
+              "warmup_wait_sec": PERF_WARMUP_S,
+              "linger_sec": PERF_LINGER_S, "acked_line": lines[0],
+              "throughput_line": lines[1],
+              "mb_per_s": float(lines[1].split(" = ")[1].split()[0]),
+              "seconds": time.time() - t0,
+              "launches_by_process": launches}
+    total = {k: sum(c[k] for c in launches.values())
+             for k in ("bitonic_sort", "fused_resolve", "bloom_build")}
+    return report, total
 
 
 def main() -> int:
@@ -3309,6 +3874,13 @@ def main() -> int:
             dev, engine_traffic(run_entries=REPL_RUN_ENTRIES), work_dir, card)
         emit({"phase": "replicated_counter", "elapsed_s":
               time.time() - _STARTED, **repl})
+        # ---- 4i. the counter service as the quick start starts it ------
+        svc, svc_launches = counter_service(work_dir, card)
+        emit({"phase": "counter_service", "elapsed_s":
+              time.time() - _STARTED, **svc})
+        perf, perf_launches = performance(work_dir, card)
+        emit({"phase": "performance", "elapsed_s": time.time() - _STARTED,
+              **perf})
         cost = instrumentation_cost()
         per_stream = stream["backends"]["fused"]["counters"]
         emit({"phase": "instrumented_seconds", "card": card,
@@ -3343,6 +3915,8 @@ def main() -> int:
         "remote_worker": remote_launches,
         "remote_worker_cli": remote_cli_launches,
         "replicated_counter": repl_launches,
+        "counter_service": svc_launches,
+        "performance": perf_launches,
     }
     launches_by_path = {p: {k: c[k] for k in sources}
                         for p, c in launches_by_path.items()}

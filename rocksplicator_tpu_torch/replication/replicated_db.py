@@ -1321,6 +1321,12 @@ class ReplicatedDB:
                         log.warning(
                             "%s: WAL-tail catch-up STALLED (%s) — "
                             "snapshot rebuild required", self.name, e)
+                    # the cached cursor may predate a local advance the
+                    # pull loop never saw (an SST ingest on this replica
+                    # takes a seqno outside the WAL): the next pull
+                    # re-reads storage, and heals if the DB moved past
+                    # the gap
+                    self._applied_through = None
                     await self._maybe_reset_upstream(force_sample=True)
                 elif e.code == ReplicateErrorCode.STALE_EPOCH.value:
                     # a KNOWN-deposed upstream (or one that outran us):

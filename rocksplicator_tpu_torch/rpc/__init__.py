@@ -1,7 +1,5 @@
 """Typed async RPC — the fbthrift-equivalent transport layer.
-(The port's copy of ``rocksplicator_tpu/rpc/__init__.py``, without the
-shard-map router ``RpcRouter`` and its ``ClusterLayout``, ``Role`` and
-``Quantity``, which the port does not have yet.)
+(The port's copy of ``rocksplicator_tpu/rpc/__init__.py``.)
 
 Reference: the fbthrift header protocol over TCP with zero-copy IOBuf
 payloads (rocksdb_replicator/thrift/replicator.thrift:44-49), client pools
@@ -25,6 +23,7 @@ from .transport import (Endpoint, Connection, Transport, get_transport,
 from .client import RpcClient
 from .client_pool import RpcClientPool
 from .server import RpcServer
+from .router import RpcRouter, ClusterLayout, Role, Quantity
 
 __all__ = [
     "FrameBuffer", "FrameReader", "write_frame",
@@ -35,4 +34,5 @@ __all__ = [
     "parse_endpoint", "resolve_endpoint", "transport_policy",
     "uds_path_for_port",
     "IoLoop", "RpcClient", "RpcClientPool", "RpcServer",
+    "RpcRouter", "ClusterLayout", "Role", "Quantity",
 ]

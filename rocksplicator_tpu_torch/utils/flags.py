@@ -1,6 +1,7 @@
 """The port's flag registry — its own copy of the part of
 ``rocksplicator_tpu/utils/flags.py`` it uses: typed flags with a default,
-a process-wide override (``FLAGS.set``, ``FLAGS.reset``), and the
+a process-wide override (``FLAGS.set``, ``FLAGS.reset``), the status
+server's ``/flags.txt`` export (``FLAGS.dump_text``), and the
 ``RSTPU_FLAG_<NAME>`` environment variable, which, as in the JAX package,
 is read once: when the flag is defined, at the import of the module that
 defines it. The port defines ``sort_backend`` in
@@ -42,6 +43,11 @@ class FlagRegistry:
     def reset(self, name: Optional[str] = None) -> None:
         for n in [name] if name else list(self._defaults):
             self._values[n] = self._defaults[n]
+
+    def dump_text(self) -> str:
+        """Export in the /gflags.txt style: --name=value per line."""
+        lines = [f"--{n}={self._values[n]}" for n in sorted(self._values)]
+        return "\n".join(lines) + "\n"
 
 
 def _coerce(value: Any, typ: type) -> Any:

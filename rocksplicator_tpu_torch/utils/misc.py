@@ -1,6 +1,7 @@
 """Small host helpers — the port's copy of the part of
 ``rocksplicator_tpu/utils/misc.py`` that the storage engine, the RPC
-transport, the coordinator, replication and the file watcher use."""
+transport, the coordinator, replication, the file watcher and the counter
+service use."""
 
 from __future__ import annotations
 
@@ -8,6 +9,12 @@ import os
 import socket
 import time
 from typing import Optional
+
+
+def availability_zone(default: str = "us-east-1a") -> str:
+    """AZ of this host. Env override RSTPU_AZ; else default (the reference
+    queries EC2 instance metadata, which a sealed host does not have)."""
+    return os.environ.get("RSTPU_AZ", default)
 
 
 def local_ip() -> str:

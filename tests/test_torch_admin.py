@@ -423,14 +423,17 @@ def test_card_replica_compaction_failure_is_not_retried_on_host(
         call(follower, "add_db", db_name="seg00001", role="FOLLOWER",
              upstream_ip=leader.repl_addr[0],
              upstream_port=leader.repl_addr[1])
+        fdb = follower.app_db("seg00001").db
         for r in range(3):
             batch = PORT.WriteBatch()
             for i in range(40):
                 batch.merge(b"k%04d" % i, pack(r))
             leader.app_db("seg00001").write(batch)
-        fdb = follower.app_db("seg00001").db
-        assert wait_until(lambda: fdb.latest_sequence_number() == 120)
-        fdb.flush()
+            # a flush a batch: the follower's L0 reaches the trigger
+            # however the background flush groups its memtables
+            assert wait_until(
+                lambda: fdb.latest_sequence_number() == 40 * (r + 1))
+            fdb.flush()
         assert wait_until(lambda: fdb._bg_compaction_error is not None)
         assert "injected kernel launch failure" in repr(
             fdb._bg_compaction_error)

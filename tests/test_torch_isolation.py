@@ -7,7 +7,10 @@ compacts and reopens a DB with the host and the card's backends, and its
 remote compaction tier (a coordinator, a worker on the card's backend, a
 leader) offloads one compaction, and a replicated shard (a leader and a
 follower behind admin handlers) adds a DB, replicates, compacts and reads
-back, on the CPU with both blocked, counting into the port's own Stats.
+back, and a two-node counter service serves a routed bump and a get, on
+the CPU with both blocked, counting into the port's own Stats; the
+counter service's main refuses to start without CUDA before it opens a
+DB.
 
 The import check runs in a subprocess, because this test process has
 imported JAX already (tests/conftest.py)."""
@@ -29,7 +32,7 @@ import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "rocksplicator_tpu"):
+        if root in ("jax", "jaxlib", "rocksplicator_tpu", "examples"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -44,7 +47,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "rocksplicator_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "rocksplicator_tpu",
+                                    "examples"))
 assert not bad, bad
 seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
         "gpu.compaction_service", "storage.errors", "storage.merge",
@@ -75,7 +79,15 @@ seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
         "replication.replicated_db", "replication.replicator",
         "replication.test_db_proxy", "storage.backup", "storage.archive",
         "admin.application_db", "admin.db_manager",
-        "admin.backup_manager", "admin.handler"}
+        "admin.backup_manager", "admin.handler",
+        "utils.future_util", "utils.ssl_context_manager", "utils.hdfs",
+        "rpc.router", "utils.hot_key_detector", "utils.graceful_shutdown",
+        "utils.status_server", "examples", "examples.counter_service",
+        "examples.counter_service.options",
+        "examples.counter_service.counter_router",
+        "examples.counter_service.counter_service",
+        "examples.counter_service.stress_test",
+        "replication.performance"}
 missing = {m for m in seam if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 print("IMPORTED", len(names))
@@ -345,6 +357,63 @@ with tempfile.TemporaryDirectory() as d:
         handler.close()
         replicator.stop()
 print("REPLICATED_ON_CPU")
+
+# the counter service: its main (and the replication harness's) refuses to
+# start without CUDA unless asked for the CPU, before it opens a DB; a
+# port counter node on the CPU serves a routed bump and a get
+import json
+from rocksplicator_tpu_torch.examples.counter_service import (
+    counter_service as cs)
+from rocksplicator_tpu_torch.examples.counter_service.options import (
+    counter_options_generator)
+from rocksplicator_tpu_torch.replication import performance
+from rocksplicator_tpu_torch.rpc import ClusterLayout, RpcRouter
+with tempfile.TemporaryDirectory() as d:
+    for run in (lambda: cs.main(["--rocksdb_dir", d + "/svc", "--port", "0",
+                                 "--status_port", "0"]),
+                lambda: performance.main(["--role", "leader", "--port", "0",
+                                          "--db_dir", d + "/perf"])):
+        try:
+            run()
+        except RuntimeError as exc:
+            assert "CUDA is not available" in str(exc), exc
+        else:
+            raise AssertionError("the counter service ran without CUDA")
+    assert not os.path.exists(d + "/svc") and not os.path.exists(d + "/perf")
+    pool = RpcClientPool()
+    nodes = []
+    for name in ("a", "b"):
+        replicator = Replicator(port=0, flags=flags)
+        router = RpcRouter(local_az="az1")
+        handler = cs.CounterHandler(
+            d + "/" + name, replicator, device="cpu", router=router,
+            options_generator=counter_options_generator)
+        server = RpcServer(port=0, ioloop=replicator.ioloop)
+        server.add_handler(handler)
+        server.start()
+        nodes.append((replicator, handler, server, router))
+    shard_map = {"counter": {"num_shards": 2}}
+    for i, n in enumerate(nodes):
+        shard_map["counter"][f"127.0.0.1:{n[2].port}:az1:{n[0].port}"] = (
+            ["00000:M", "00001:S"] if i == 0 else ["00000:S", "00001:M"])
+    for n in nodes:
+        n[3].update_layout(ClusterLayout.parse(json.dumps(shard_map).encode()))
+        assert cs.create_dbs_from_shard_map(
+            n[1], n[3], ("127.0.0.1", n[2].port)) == 2
+    name = next(f"c{i}" for i in range(100)
+                if nodes[0][1].router.shard_for(f"c{i}") == 1)
+    call(nodes[0], "bump_counter", counter_name=name, delta=5,
+         need_routing=True)
+    assert call(nodes[1], "get_counter", counter_name=name)[
+        "counter_value"] == 5
+    assert call(nodes[0], "get_counter", counter_name=name,
+                need_routing=True)["counter_value"] in (0, 5)
+    ioloop.run_sync(pool.close())
+    for replicator, handler, server, _router in nodes:
+        server.stop()
+        handler.close()
+        replicator.stop()
+print("COUNTER_SERVICE_ON_CPU")
 rc = chip_smoke.main()
 assert rc != 0, rc
 print("SMOKE_REFUSES", rc)
@@ -371,6 +440,7 @@ def test_port_imports_without_jax_and_refuses_cpu_fallback():
     assert "ENGINE_ON_CPU" in res.stdout
     assert "REMOTE_ON_CPU" in res.stdout
     assert "REPLICATED_ON_CPU" in res.stdout
+    assert "COUNTER_SERVICE_ON_CPU" in res.stdout
     assert "SMOKE_REFUSES" in res.stdout
     assert '"ok"' not in res.stdout
 
@@ -441,5 +511,7 @@ def test_port_failpoint_sites_are_registered():
               # replication and the admin plane
               "ack.expire", "repl.apply", "repl.pull", "repl.read",
               "repl.read.serve", "repl.mux.apply", "repl.mux.serve",
-              "admin.ingest.engine", "admin.ingest.meta"}
+              "admin.ingest.engine", "admin.ingest.meta",
+              # the router and the HDFS store
+              "router.read_pick", "router.hedge.fire", "hdfs.request"}
     assert dead == set(REGISTRY) - ported
