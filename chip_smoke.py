@@ -153,6 +153,22 @@ PyTorch built for CUDA. It
    directory scanned on the host, leader equal to follower and to the
    oracle; then the replication harness as two processes
    (``performance``: its throughput line and launch counts);
+4j. drives the CDC ingestion stack (``cdc_ingest``): 2^19 CDC records
+   (11-byte keys from a space of 2^18, 256-byte values, a tenth deletes)
+   from an embedded topic through A's ``start_message_ingestion`` into a
+   three-replica shard in ack mode 1 (A leading and B following on the
+   card, C following on the host) with a CDC observer D on A, the first
+   2^16 produced before the start and the rest offered at 100,000 a
+   second; ``compact_db`` on C, B, A at half and on each after the drain:
+   every key against the oracle on A, B and C, watermarks and applies
+   counters, sha256-equal files, D's batches replaying to A's state, K2
+   once per compaction of A and B (the tuple path: the reserved watermark
+   keys differ in width), no K1 or K3, C launching nothing; then the
+   networked broker and the consumer app as processes under the lock-order
+   watchdog (``cdc_network``: 8 producers, 2^14 records ingested by
+   ``broker://`` into an unreplicated shard on A, read back before and
+   after ``compact_db``, the app printing every record, DB_ADMIN_ERROR for
+   an unknown topic, exit 0 on SIGINT);
 
 Every phase raises on failure and the script then exits non-zero. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -2440,14 +2456,17 @@ REPL_MEMTABLE_BYTES = 8 << 20
 class _CompactionLog:
     """Attributes the compactions of the replicated shard to its replicas.
 
-    During the phase, ``merge_runs_to_files`` of the card's and the
-    host's backends is wrapped at the class: each call runs under the
-    replica's tag (a thread-local, the backend instance's owner), and is
-    logged with its thread, output files, streamed chunks and stage
-    seconds; an exception is counted and re-raised. Each kernel launch and
-    each ``compaction.stream_*`` increment of the port's Stats is
-    attributed to the tag it ran under (``None`` outside every
-    compaction)."""
+    During the phase, ``merge_runs_to_files`` (the direct sink) and
+    ``merge_runs`` (the engine's tuple path, taken where the sink
+    declines) of the card's and the host's backends are wrapped at the
+    class: each call runs under the replica's tag (a thread-local, the
+    backend instance's owner), and is logged with its thread, output files
+    (None: declined), streamed chunks and stage seconds; an exception is
+    counted and re-raised. Each kernel launch and each
+    ``compaction.stream_*`` increment of the port's Stats is attributed to
+    the tag it ran under (``None`` outside every compaction), and so is
+    each K2 call's CUDA-event time (the wrapper's launches; host gaps
+    between them included)."""
 
     def __init__(self):
         import threading
@@ -2455,6 +2474,7 @@ class _CompactionLog:
         self.tls = threading.local()
         self.owner = {}
         self.calls, self.errors, self.launches = [], [], []
+        self.tuple_calls, self.k2_ms = [], []
         self.stream = []
 
     def tag(self):
@@ -2470,10 +2490,12 @@ class _CompactionLog:
         from rocksplicator_tpu_torch.utils.stats import Stats
 
         log = self
-        self._saved = [(cls, cls.merge_runs_to_files) for cls in (
-            GpuCompactionBackend, NativeCompactionBackend)]
-        for cls, real in self._saved:
-            def wrapped(backend, *args, _real=real, **kwargs):
+        self._saved = [(cls, name, getattr(cls, name))
+                       for cls in (GpuCompactionBackend,
+                                   NativeCompactionBackend)
+                       for name in ("merge_runs_to_files", "merge_runs")]
+        for cls, name, real in self._saved:
+            def wrapped(backend, *args, _real=real, _name=name, **kwargs):
                 tag = log.owner.get(id(backend), "unowned")
                 log.tls.tag = tag
                 thread = threading.current_thread().name
@@ -2485,6 +2507,13 @@ class _CompactionLog:
                     raise
                 finally:
                     log.tls.tag = None
+                if _name == "merge_runs":
+                    # the engine's tuple path, after the direct sink
+                    # declined (the card's backend merges here, eagerly)
+                    log.tuple_calls.append({
+                        "replica": tag, "thread": thread,
+                        "seconds": time.time() - t0})
+                    return outs
                 log.calls.append({
                     "replica": tag, "thread": thread,
                     "seconds": time.time() - t0,
@@ -2493,7 +2522,27 @@ class _CompactionLog:
                     "stages": dict(getattr(backend, "last_stage_seconds",
                                            {}))})
                 return outs
-            cls.merge_runs_to_files = wrapped
+            setattr(cls, name, wrapped)
+        from rocksplicator_tpu_torch.ops import fused_resolve
+
+        self._k2 = fused_resolve.fused_merge_resolve
+
+        def timed_k2(*args, **kwargs):
+            # the K2 wrapper's device time (CUDA events; the compaction
+            # reads the result back right after)
+            import torch
+
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = log._k2(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            log.k2_ms.append((log.tag(), threading.current_thread().name,
+                              start.elapsed_time(end)))
+            return out
+
+        fused_resolve.fused_merge_resolve = timed_k2
         self._count_launch = _build.count_launch
 
         def counted(name, cuda_launches=None):
@@ -2513,10 +2562,11 @@ class _CompactionLog:
         self._stats.incr = counted_incr
 
     def uninstall(self):
-        from rocksplicator_tpu_torch.ops import _build
+        from rocksplicator_tpu_torch.ops import _build, fused_resolve
 
-        for cls, real in self._saved:
-            cls.merge_runs_to_files = real
+        for cls, name, real in self._saved:
+            setattr(cls, name, real)
+        fused_resolve.fused_merge_resolve = self._k2
         _build.count_launch = self._count_launch
         del self._stats.incr
 
@@ -2540,19 +2590,28 @@ class _CompactionLog:
             if t == tag:
                 key = f"{name}@{kind(thread)}"
                 launches[key] = launches.get(key, 0) + 1
-        # the card's backend reports its chunks a call; the host's not
-        in_ram = [c for c in calls if c["chunks"] == 0]
+        # a direct sink that declined (None) left the compaction to the
+        # engine's tuple path; the card's backend reports its chunks a
+        # call, the host's not
+        declined = sum(1 for c in calls if c["files"] is None)
+        in_ram = [c for c in calls
+                  if c["chunks"] == 0 and c["files"] is not None]
+        tuples = [c for c in self.tuple_calls if c["replica"] == tag]
         return {"calls": len(calls),
                 "by_thread": {k: sum(1 for c in calls
                                      if kind(c["thread"]) == k)
                               for k in ("background", "compact_db")},
-                "in_ram": len(calls) - int(merges),
+                "declined": declined, "tuple_calls": len(tuples),
+                "in_ram": len(calls) - declined - int(merges),
                 "in_ram_by_backend": len(in_ram),
                 "in_ram_files": sum(c["files"] or 0 for c in in_ram),
                 "stream_chunks": int(chunks), "stream_merges": int(merges),
                 "backend_chunks": sum(c["chunks"] or 0 for c in calls),
                 "launches": launches,
+                "k2_device_ms": [(kind(th), ms) for t, th, ms in self.k2_ms
+                                 if t == tag],
                 "seconds": [c["seconds"] for c in calls],
+                "tuple_seconds": [c["seconds"] for c in tuples],
                 "stages": [c["stages"] for c in calls]}
 
 
@@ -3362,6 +3421,627 @@ def performance(work_dir: str, card: str) -> tuple:
     return report, total
 
 
+# ---- the CDC ingestion stack: a Kafka topic into a semi-sync shard ---------
+# cdc_ingest: BASELINE.json configs[3] ("cdc_admin Kafka WAL-tail, 3-replica
+# semi-sync, sustained 100K writes/s -> rolling compaction"): CDC_RECORDS
+# records from partition 0 of an embedded topic into a three-replica shard
+# in ack mode 1, with a CDC observer on the leader. The one cut, of depth,
+# for the command's time: 2^19 records (the phase took 469 s at 2^20, most
+# of it the consumer's backpressure sleeps), the key space halved with it
+CDC_RECORDS = 1 << 19
+CDC_KEY_SPACE = 1 << 18  # each key written about twice
+CDC_VALUE_BYTES = 256  # the macro bench's --cdc_value_bytes default
+CDC_DELETE_SHARE = 0.1  # empty values, applied as DELETEs
+CDC_PRELOAD = 1 << 16  # produced before start_message_ingestion
+CDC_RATE = 100_000  # records/s offered after it, open loop
+CDC_SEED = 1111
+CDC_DB = "seg00000"  # shard 0 reads partition 0
+CDC_MEMTABLE_BYTES = 8 << 20  # the engine's default
+CDC_READ_SLICE = 1 << 14
+# cdc_network: the networked broker and the consumer app as processes
+CDC_NET_RECORDS = 1 << 14
+CDC_NET_PRODUCERS = 8
+CDC_NET_DB = "seg00001"  # unreplicated, on the leader's node; partition 1
+
+
+def cdc_stream(n: int, key_space: int, seed: int) -> dict:
+    """A seeded CDC stream: record i writes key ``b"cdc%08d" % ids[i]``
+    with a CDC_VALUE_BYTES value, or deletes it (``deletes[i]``); and the
+    numpy oracle, last write in stream order wins: each touched key's last
+    record, and the keys it leaves live."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, key_space, n)
+    deletes = rng.random(n) < CDC_DELETE_SHARE
+    values = rng.integers(0, 256, (n, CDC_VALUE_BYTES), dtype=np.uint8)
+    last = np.full(key_space, -1, dtype=np.int64)
+    np.maximum.at(last, ids, np.arange(n))
+    touched = np.flatnonzero(last >= 0)
+    live = touched[~deletes[last[touched]]]
+    return {"n": n, "ids": ids, "deletes": deletes, "values": values,
+            "last": last, "touched": touched, "live": live,
+            "bytes": int(n * 11 + (~deletes).sum() * CDC_VALUE_BYTES)}
+
+
+def cdc_record(stream: dict, i: int) -> tuple:
+    return (b"cdc%08d" % stream["ids"][i],
+            b"" if stream["deletes"][i] else stream["values"][i].tobytes())
+
+
+def check_cdc_read_back(db, stream: dict, what: str,
+                        order=None) -> dict:
+    """Every touched key through multi_get and one full scan against the
+    oracle (``order``: the records' positions in topic order, when that
+    is not stream order). Returns host seconds and the reserved keys."""
+    last = stream["last"]
+    if order is not None:
+        import numpy as np
+
+        last = np.full(len(last), -1, dtype=np.int64)
+        np.maximum.at(last, stream["ids"], order)
+        pos = np.argsort(order)  # topic offset -> stream index
+        last = np.where(last >= 0, pos[np.maximum(last, 0)], -1)
+    touched = stream["touched"]
+
+    def want(i):
+        j = int(last[i])
+        return None if stream["deletes"][j] \
+            else stream["values"][j].tobytes()
+
+    t0 = time.time()
+    for s in range(0, len(touched), CDC_READ_SLICE):
+        part = touched[s:s + CDC_READ_SLICE].tolist()
+        got = db.multi_get([b"cdc%08d" % i for i in part])
+        for i, g in zip(part, got):
+            if g != want(i):
+                raise AssertionError(f"{what}: cdc{i:08d} reads "
+                                     f"{g!r:.40}, want {want(i)!r:.40}")
+    t1 = time.time()
+    live = [i for i in touched.tolist() if want(i) is not None]
+    n, reserved = 0, {}
+    for key, val in db.new_iterator():
+        if key.startswith(b"\x00"):
+            reserved[key] = val
+            continue
+        if n >= len(live) or key != b"cdc%08d" % live[n] \
+                or val != want(live[n]):
+            raise AssertionError(f"{what}: scan entry {n} is {key!r}")
+        n += 1
+    if n != len(live):
+        raise AssertionError(f"{what}: scan gave {n} keys, want {len(live)}")
+    return {"multi_get_s": t1 - t0, "scan_s": time.time() - t1,
+            "keys_read": len(touched), "live_keys": n,
+            "reserved_keys": sorted(k.decode("latin-1") for k in reserved)}
+
+
+class _CdcTimes:
+    """Host seconds and calls of the consumer's stages, wrapped at the
+    class for the phase: fetch (``IngestionWatcher._drain``), batch build,
+    the leader's commit (``ReplicatedDB.write_async_many``: WAL and
+    memtable) and the grouped write (``ApplicationDB.write_many``: the
+    commit and the wait for each batch's ack)."""
+
+    def __init__(self):
+        from rocksplicator_tpu_torch.admin.application_db import (
+            ApplicationDB)
+        from rocksplicator_tpu_torch.kafka.ingestion import IngestionWatcher
+        from rocksplicator_tpu_torch.replication.replicated_db import (
+            ReplicatedDB)
+
+        self.totals = {}
+        self._saved = []
+        for key, cls, name in (
+                ("fetch", IngestionWatcher, "_drain"),
+                ("build", IngestionWatcher, "_build_batches"),
+                ("commit", ReplicatedDB, "write_async_many"),
+                ("write_many", ApplicationDB, "write_many")):
+            real = getattr(cls, name)
+            self._saved.append((cls, name, real))
+            self.totals[key] = [0.0, 0]
+
+            def timed(*args, _real=real, _key=key, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*args, **kwargs)
+                finally:
+                    tot = self.totals[_key]
+                    tot[0] += time.perf_counter() - t0
+                    tot[1] += 1
+            setattr(cls, name, timed)
+
+    def reset(self):
+        for tot in self.totals.values():
+            tot[:] = [0.0, 0]
+
+    def report(self) -> dict:
+        out = {f"{k}_s": v[0] for k, v in self.totals.items()}
+        out.update({f"{k}_calls": v[1] for k, v in self.totals.items()})
+        # write_many waits each batch's ack after the commit
+        out["ack_wait_s"] = out["write_many_s"] - out["commit_s"]
+        return out
+
+    def uninstall(self):
+        for cls, name, real in self._saved:
+            setattr(cls, name, real)
+
+
+def cdc_ingest(dev, work_dir: str, card: str) -> tuple:
+    """The CDC ingestion stack through the port's entry points: three
+    nodes in this process, each a port Replicator and AdminHandler on a
+    port RpcServer, shard CDC_DB in ack mode 1: A leads on the card, B
+    follows on the card, C follows with gpu_compaction=False (the host's
+    comparator); D, a port CdcAdminHandler on its own Replicator and
+    RpcServer, observes A from before the first record and publishes
+    every replicated batch through a QueuePublisher into topic
+    ``cdc_out``. The engine's defaults (8 MiB memtable, L0 trigger 4, the
+    256 MiB budget, auto stream) with background compaction and one slice
+    a compaction; no merge operator.
+
+    CDC_RECORDS records go into partition 0 of topic ``cdc_in`` on the
+    port's embedded broker (``embedded://cdc``): the first CDC_PRELOAD
+    before A's start_message_ingestion RPC (the watcher replays, then
+    tails), the rest open loop at CDC_RATE a second. Once A has applied
+    half, compact_db runs on C, B, A in turn while the stream goes on;
+    after the drain, on each once more.
+
+    Checks: every key reads back from A, B and C equal to the oracle
+    (multi_get and a scan); the watermark and the applies counter equal
+    CDC_RECORDS on each; ``kafka.cdc.records_applied`` equals it with no
+    duplicate skipped and no consumer error; the replicas' live files are
+    sha256-equal and their seqs equal; D published every seq of A once, in
+    order, and its batches replayed give A's state; A's and B's K2 calls
+    equal their compactions, every one of which took the engine's tuple
+    path (CDC keys and the reserved watermark keys differ in width, so the
+    direct sinks decline), with no K1 or K3; C launches nothing; no
+    compaction raised and no replica is left in background error.
+
+    Then ``cdc_network`` (see there) on A's node. Returns (cdc_ingest's
+    report, its launches, cdc_network's report, its launches)."""
+    import hashlib
+    import os
+    import threading
+
+    import torch
+
+    from rocksplicator_tpu_torch.admin import AdminHandler, CdcAdminHandler
+    from rocksplicator_tpu_torch.kafka.broker import (MockConsumer,
+                                                      get_cluster)
+    from rocksplicator_tpu_torch.kafka.checkpoint import (read_applies,
+                                                          read_watermark)
+    from rocksplicator_tpu_torch.kafka.publisher import QueuePublisher
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.replication import (ReplicationFlags,
+                                                     Replicator)
+    from rocksplicator_tpu_torch.rpc import IoLoop, RpcClientPool, RpcServer
+    from rocksplicator_tpu_torch.storage import DBOptions
+    from rocksplicator_tpu_torch.storage.records import OpType, decode_batch
+    from rocksplicator_tpu_torch.utils.stats import Stats
+
+    def cdc_options(segment):
+        return DBOptions(background_compaction=True, max_subcompactions=1,
+                         memtable_bytes=CDC_MEMTABLE_BYTES)
+
+    t_phase = time.time()
+    root = os.path.join(work_dir, "cdc")
+    os.makedirs(root)
+    _sort_flag(SEAM_FLAGS["fused"])
+    stream = cdc_stream(CDC_RECORDS, CDC_KEY_SPACE, CDC_SEED)
+    broker = get_cluster("cdc")
+    broker.create_topic("cdc_in", 1)
+    flags = ReplicationFlags()
+    nodes, servers = {}, []
+    log = _CompactionLog()
+    times = None
+    pool, ioloop = RpcClientPool(), IoLoop.default()
+
+    def call(port, method, **args):
+        async def go():
+            return await pool.call("127.0.0.1", port, method, args,
+                                   timeout=900)
+        return ioloop.run_sync(go())
+
+    def admin(tag, method, **args):
+        return call(nodes[tag][2].port, method, **args)
+
+    def app_db(tag, name=CDC_DB):
+        return nodes[tag][1].db_manager.get_db(name)
+
+    def digests(tag):
+        db = app_db(tag).db
+        return sorted(hashlib.sha256(open(os.path.join(db.path, n),
+                                          "rb").read()).hexdigest()
+                      for level in db._levels for n in level)
+
+    def applied():
+        wm = read_watermark(app_db("A").db, "cdc_in", 0)
+        return 0 if wm is None else wm["offset"]
+
+    def produce(lo, hi, rate, base):
+        t0 = time.perf_counter()
+        for s in range(lo, hi, 1024):
+            for i in range(s, min(s + 1024, hi)):
+                key, val = cdc_record(stream, i)
+                broker.produce("cdc_in", 0, key, val, timestamp_ms=base + i)
+            if rate:
+                due = t0 + (min(s + 1024, hi) - lo) / rate
+                pause = due - time.perf_counter()
+                if pause > 0:
+                    time.sleep(pause)
+        return time.perf_counter() - t0
+
+    report = {"card": card, "records": CDC_RECORDS,
+              "key_space": CDC_KEY_SPACE, "value_bytes": CDC_VALUE_BYTES,
+              "delete_share": CDC_DELETE_SHARE, "preload": CDC_PRELOAD,
+              "offered_rate": CDC_RATE, "mode": 1,
+              "stream_bytes": stream["bytes"],
+              "touched_keys": int(len(stream["touched"])),
+              "live_keys": int(len(stream["live"]))}
+    Stats.reset_for_test()
+    log.install()
+    try:
+        t0 = time.time()
+        for tag, kw in (("A", {"device": dev}), ("B", {"device": dev}),
+                        ("C", {"gpu_compaction": False})):
+            replicator = Replicator(port=0, flags=flags)
+            handler = AdminHandler(os.path.join(root, tag), replicator,
+                                   options_generator=cdc_options, **kw)
+            server = RpcServer(port=0, ioloop=replicator.ioloop)
+            server.add_handler(handler)
+            server.start()
+            nodes[tag] = (replicator, handler, server)
+        observer_host = Replicator(port=0, flags=flags)
+        observer = CdcAdminHandler(observer_host, QueuePublisher(
+            "cdc_out", broker, num_partitions=1))
+        observer_server = RpcServer(port=0, ioloop=observer_host.ioloop)
+        observer_server.add_handler(observer)
+        observer_server.start()
+        servers.append((observer_server, observer, observer_host))
+        admin("A", "add_db", db_name=CDC_DB, role="LEADER",
+              replication_mode=1)
+        for tag in ("B", "C"):
+            admin(tag, "add_db", db_name=CDC_DB, role="FOLLOWER",
+                  upstream_ip="127.0.0.1", upstream_port=nodes["A"][0].port,
+                  replication_mode=1)
+        for tag in ("A", "B", "C"):
+            log.owner[id(app_db(tag).db._backend)] = tag
+        backends = {t: type(app_db(t).db._backend).__name__
+                    for t in ("A", "B", "C")}
+        if backends != {"A": "GpuCompactionBackend",
+                        "B": "GpuCompactionBackend",
+                        "C": "NativeCompactionBackend"}:
+            raise AssertionError(f"cdc ingest: backends {backends}")
+        observed = call(observer_server.port, "add_observer", db_name=CDC_DB,
+                        upstream_ip="127.0.0.1",
+                        upstream_port=nodes["A"][0].port)
+        if observed["start_seq"] != 0:
+            raise AssertionError(f"cdc ingest: observer {observed}")
+        report["preload_s"] = produce(0, CDC_PRELOAD, 0, 1000)
+        report["setup_s"] = time.time() - t0
+        times = _CdcTimes()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.time()
+        admin("A", "start_message_ingestion", db_name=CDC_DB,
+              topic_name="cdc_in", kafka_broker_serverset_path="embedded://cdc")
+        tail = {}
+        producer = threading.Thread(
+            target=lambda: tail.update(seconds=produce(
+                CDC_PRELOAD, CDC_RECORDS, CDC_RATE, 1000)),
+            name="cdc-producer")
+        producer.start()
+        deadline = time.time() + 1800
+        while applied() < CDC_RECORDS // 2:
+            if time.time() > deadline:
+                raise AssertionError(f"cdc ingest: {applied()} applied")
+            time.sleep(0.05)
+        report["half_applied_s"] = time.time() - t0
+        rolling = {}
+        for tag in ("C", "B", "A"):
+            t1 = time.time()
+            admin(tag, "compact_db", db_name=CDC_DB)
+            rolling[tag] = time.time() - t1
+        report["rolling_compact_db_s"] = rolling
+        report["applied_after_rolling"] = applied()
+        while applied() < CDC_RECORDS:
+            if time.time() > deadline or not producer.is_alive() \
+                    and broker.high_watermark("cdc_in", 0) < CDC_RECORDS:
+                raise AssertionError(f"cdc ingest: {applied()} applied")
+            time.sleep(0.02)
+        apply_s = time.time() - t0
+        want = app_db("A").latest_sequence_number()
+        lag = {t: want - app_db(t).latest_sequence_number()
+               for t in ("B", "C")}
+        producer.join(60)
+        stage = times.report()
+        admin("A", "stop_message_ingestion", db_name=CDC_DB)
+        while any(app_db(t).latest_sequence_number() != want
+                  for t in ("B", "C")):
+            if time.time() > deadline:
+                raise AssertionError(f"cdc ingest: followers behind {want}")
+            time.sleep(0.05)
+        catch_up_s = time.time() - t0 - apply_s
+        stats = Stats.get()
+        counters = {n: stats.get_counter(f"kafka.cdc.{n}") for n in (
+            "records_applied", "bytes_applied", "batches", "dup_skipped",
+            "consumer_errors", "paced_sleeps", "paced_ms", "resumes",
+            "retry_later")}
+        report.update(
+            apply_s=apply_s, apply_records_per_s=CDC_RECORDS / apply_s,
+            apply_mb_per_s=stream["bytes"] / apply_s / 1e6,
+            produce_tail_s=tail.get("seconds"),
+            produce_records_per_s=(CDC_RECORDS - CDC_PRELOAD)
+            / tail["seconds"],
+            produce_mb_per_s=stream["bytes"] * (CDC_RECORDS - CDC_PRELOAD)
+            / CDC_RECORDS / tail["seconds"] / 1e6,
+            stages=stage, counters=counters, seq=want,
+            follower_lag_seqs_at_drain=lag, follower_catch_up_s=catch_up_s,
+            levels_before_final_compact_db={
+                t: [len(f) for f in app_db(t).db._levels]
+                for t in ("A", "B", "C")})
+        compact_s = {}
+        for tag in ("A", "B", "C"):
+            t1 = time.time()
+            admin(tag, "compact_db", db_name=CDC_DB)
+            compact_s[tag] = time.time() - t1
+        torch.cuda.synchronize()
+        report["final_compact_db_s"] = compact_s
+        launches = dict(_build.LAUNCHES)
+        files = {t: digests(t) for t in ("A", "B", "C")}
+        seqs = {t: app_db(t).latest_sequence_number()
+                for t in ("A", "B", "C")}
+        if not files["A"] or files["A"] != files["B"] \
+                or files["A"] != files["C"]:
+            raise AssertionError(f"cdc ingest: files differ {files}")
+        if len(set(seqs.values())) != 1 or seqs["A"] != want:
+            raise AssertionError(f"cdc ingest: seqs {seqs}")
+        report["files"] = len(files["A"])
+        marks = {t: (read_watermark(app_db(t).db, "cdc_in", 0)["offset"],
+                     read_applies(app_db(t).db, "cdc_in", 0))
+                 for t in ("A", "B", "C")}
+        if any(m != (CDC_RECORDS, CDC_RECORDS) for m in marks.values()):
+            raise AssertionError(f"cdc ingest: watermarks {marks}")
+        if counters["records_applied"] != CDC_RECORDS \
+                or counters["dup_skipped"] or counters["consumer_errors"]:
+            raise AssertionError(f"cdc ingest: counters {counters}")
+        report["read_back"] = {
+            t: check_cdc_read_back(app_db(t), stream, f"cdc ingest {t}")
+            for t in ("A", "B", "C")}
+        # D: every seq of A once, in order; its batches replayed give A
+        wrapper = observer._observers[CDC_DB][0]
+        while wrapper.latest_sequence_number() != want:
+            if time.time() > deadline:
+                raise AssertionError(f"cdc ingest: observer at "
+                                     f"{wrapper.latest_sequence_number()}")
+            time.sleep(0.05)
+        consumer = MockConsumer(broker)
+        consumer.assign("cdc_out", [0])
+        state, next_seq, published = {}, 1, 0
+        t1 = time.time()
+        while True:
+            m = consumer.consume(0.0)
+            if m is None:
+                break
+            published += 1
+            if int(m.key.split(b":")[1]) != next_seq:
+                raise AssertionError(f"cdc ingest: observer batch {m.key!r}"
+                                     f" where seq {next_seq} was next")
+            for vtype, key, val in decode_batch(m.value).ops():
+                if vtype == OpType.PUT:
+                    state[key] = val
+                elif vtype == OpType.DELETE:
+                    state.pop(key, None)
+                elif vtype != OpType.LOG_DATA:
+                    raise AssertionError(f"cdc ingest: observer op {vtype}")
+                if vtype != OpType.LOG_DATA:
+                    next_seq += 1
+        if next_seq != want + 1:
+            raise AssertionError(f"cdc ingest: observer published through "
+                                 f"{next_seq - 1} of {want}")
+        if state != dict(app_db("A").db.new_iterator()):
+            raise AssertionError("cdc ingest: the observer's batches do not "
+                                 "replay to A's state")
+        report["observer"] = {"batches": published, "seqs": want,
+                              "replay_s": time.time() - t1}
+        bg = {t: (app_db(t).db._bg_compaction_error,
+                  app_db(t).db._bg_compaction_failures,
+                  app_db(t).db._bg_flush_failures) for t in ("A", "B", "C")}
+        if log.errors:
+            raise AssertionError(f"cdc ingest: compactions raised "
+                                 f"{log.errors}")
+        if any(err is not None or fails or fl
+               for err, fails, fl in bg.values()):
+            raise AssertionError(f"cdc ingest: background errors {bg}")
+        per = {t: log.of(t) for t in ("A", "B", "C")}
+        stray = [x for x in log.launches if x[1] not in ("A", "B")]
+        if stray:
+            raise AssertionError(f"cdc ingest: launches outside the card "
+                                 f"replicas' compactions {stray[:8]}")
+        for tag in ("A", "B"):
+            p = per[tag]
+            n_k2 = sum(v for k, v in p["launches"].items()
+                       if k.startswith("fused_resolve@"))
+            others = {k: v for k, v in p["launches"].items()
+                      if not k.startswith("fused_resolve@")}
+            if n_k2 < 1 or n_k2 != p["calls"] or p["calls"] != p["declined"] \
+                    or p["tuple_calls"] != p["calls"] or others \
+                    or p["by_thread"]["compact_db"] != 2:
+                raise AssertionError(f"cdc ingest {tag}: K2 {n_k2} against "
+                                     f"{p}")
+        if per["C"]["launches"] or per["C"]["calls"] < 2:
+            raise AssertionError(f"cdc ingest C: {per['C']}")
+        report["compactions"] = {
+            t: {k: v for k, v in p.items() if k != "stages"}
+            for t, p in per.items()}
+        report["launches"] = launches
+        report["seconds"] = time.time() - t_phase
+        # ---- cdc_network, on A's node ----
+        times.reset()
+        net, net_launches = cdc_network(admin, app_db, work_dir, card)
+        net["stages"] = times.report()
+    finally:
+        if times is not None:
+            times.uninstall()
+        log.uninstall()
+        ioloop.run_sync(pool.close())
+        for server, handler, replicator in servers:
+            server.stop()
+            handler.close()
+            replicator.stop()
+        for replicator, handler, server in nodes.values():
+            server.stop()
+            handler.close()
+            replicator.stop()
+        from rocksplicator_tpu_torch.kafka.broker import (
+            reset_clusters_for_test)
+
+        reset_clusters_for_test()
+        _sort_flag(None)
+    return report, launches, net, net_launches
+
+
+def cdc_network(admin, app_db, work_dir: str, card: str) -> tuple:
+    """The networked broker as its own process (``python -m
+    rocksplicator_tpu_torch.kafka.network``, RSTPU_LOCKWATCH=1):
+    CDC_NET_PRODUCERS NetworkProducer threads write CDC_NET_RECORDS
+    records of the CDC shapes into partition 1 of ``cdc_net``; A's
+    start_message_ingestion with ``broker://127.0.0.1:<port>`` ingests
+    them into an unreplicated CDC_NET_DB (on the card), whose watermark
+    reaches CDC_NET_RECORDS and whose every key reads back (against the
+    records in the broker's offset order) before and after compact_db;
+    stop_message_ingestion stops the watcher; the port's consumer app as
+    its own process (RSTPU_LOCKWATCH=1) prints every record and exits 0;
+    an unknown topic answers DB_ADMIN_ERROR; the broker stops on SIGINT
+    with exit 0, and neither process logged a lock-order violation."""
+    import os
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rocksplicator_tpu_torch.kafka.checkpoint import read_watermark
+    from rocksplicator_tpu_torch.kafka.network import NetworkProducer
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.rpc.errors import RpcApplicationError
+
+    t_phase = time.time()
+    stream = cdc_stream(CDC_NET_RECORDS, CDC_NET_RECORDS // 2, CDC_SEED + 1)
+    data = os.path.join(work_dir, "cdc_broker")
+    blog = os.path.join(work_dir, "cdc_broker.log")
+    port = _free_port()
+    env = _child_env(RSTPU_LOCKWATCH="1")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with open(blog, "w") as out:
+        broker = subprocess.Popen(
+            [sys.executable, "-m", "rocksplicator_tpu_torch.kafka.network",
+             "--port", str(port), "--data_dir", data],
+            stdout=out, stderr=subprocess.STDOUT, env=env)
+    report = {"card": card, "records": CDC_NET_RECORDS,
+              "producers": CDC_NET_PRODUCERS, "stream_bytes": stream["bytes"]}
+    try:
+        _wait_line(broker, blog, "broker up:", 120)
+        report["broker_start_s"] = time.time() - t_phase
+        admin_prod = NetworkProducer("127.0.0.1", port)
+        admin_prod.create_topic("cdc_net", 2)
+        admin_prod.close()
+        order = np.zeros(CDC_NET_RECORDS, dtype=np.int64)
+        errors = []
+
+        def produce(k):
+            try:
+                prod = NetworkProducer("127.0.0.1", port)
+                for i in range(k, CDC_NET_RECORDS, CDC_NET_PRODUCERS):
+                    key, val = cdc_record(stream, i)
+                    order[i] = prod.produce("cdc_net", 1, key, val,
+                                            timestamp_ms=1000 + i)
+                prod.close()
+            except Exception as exc:  # reported and raised below
+                errors.append(repr(exc))
+
+        t0 = time.time()
+        threads = [threading.Thread(target=produce, args=(k,))
+                   for k in range(CDC_NET_PRODUCERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        report["produce_s"] = time.time() - t0
+        if errors or sorted(order.tolist()) != list(range(CDC_NET_RECORDS)):
+            raise AssertionError(f"cdc network: producers {errors[:3]}")
+        report["produce_records_per_s"] = CDC_NET_RECORDS / report[
+            "produce_s"]
+        admin("A", "add_db", db_name=CDC_NET_DB, role="LEADER")
+        t0 = time.time()
+        admin("A", "start_message_ingestion", db_name=CDC_NET_DB,
+              topic_name="cdc_net",
+              kafka_broker_serverset_path=f"broker://127.0.0.1:{port}")
+        db = app_db("A", CDC_NET_DB)
+        deadline = time.time() + 600
+        while (read_watermark(db.db, "cdc_net", 1) or {}).get(
+                "offset") != CDC_NET_RECORDS:
+            if time.time() > deadline:
+                raise AssertionError("cdc network: the watermark stalled")
+            time.sleep(0.05)
+        report["apply_s"] = time.time() - t0
+        report["apply_records_per_s"] = CDC_NET_RECORDS / report["apply_s"]
+        report["read_back"] = check_cdc_read_back(db, stream, "cdc network",
+                                                  order=order)
+        admin("A", "stop_message_ingestion", db_name=CDC_NET_DB)
+        t0 = time.time()
+        admin("A", "compact_db", db_name=CDC_NET_DB)
+        report["compact_db_s"] = time.time() - t0
+        report["read_back_compacted"] = check_cdc_read_back(
+            db, stream, "cdc network compacted", order=order)
+        try:
+            admin("A", "start_message_ingestion", db_name=CDC_NET_DB,
+                  topic_name="cdc_missing",
+                  kafka_broker_serverset_path=f"broker://127.0.0.1:{port}")
+        except RpcApplicationError as exc:
+            report["unknown_topic"] = exc.code
+        if report.get("unknown_topic") != "DB_ADMIN_ERROR":
+            raise AssertionError(f"cdc network: unknown topic answered "
+                                 f"{report.get('unknown_topic')}")
+        app_out = os.path.join(work_dir, "cdc_consumer_app.log")
+        t0 = time.time()
+        with open(app_out, "w") as out:
+            rc = subprocess.run(
+                [sys.executable, "-m", "rocksplicator_tpu_torch.examples."
+                 "kafka_consumer_app.kafka_consumer_app",
+                 "--broker", f"127.0.0.1:{port}", "--topic", "cdc_net",
+                 "--partitions", "1", "--max_messages",
+                 str(CDC_NET_RECORDS)],
+                stdout=out, stderr=subprocess.STDOUT, env=env,
+                timeout=600).returncode
+        report["consumer_app_s"] = time.time() - t0
+        with open(app_out) as f:
+            text = f.read()
+        printed = sum(1 for line in text.splitlines()
+                      if line.startswith(("[replay] ", "[live] ")))
+        report["consumer_app"] = {"rc": rc, "printed": printed}
+        if rc != 0 or printed != CDC_NET_RECORDS \
+                or "lock-order violation" in text or "Traceback" in text:
+            raise AssertionError(f"cdc network: consumer app rc {rc}, "
+                                 f"{printed} printed: {text[-2000:]}")
+        broker.send_signal(signal.SIGINT)
+        report["broker_rc"] = broker.wait(60)
+        text = _tail(blog, 20000)
+        if report["broker_rc"] != 0 or "lock-order violation" in text \
+                or "Traceback" in text:
+            raise AssertionError(f"cdc network: broker rc "
+                                 f"{report['broker_rc']}: {text[-2000:]}")
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    finally:
+        if broker.poll() is None:
+            broker.kill()
+            broker.wait()
+    report["launches"] = launches
+    report["seconds"] = time.time() - t_phase
+    return report, launches
+
+
 def main() -> int:
     import os
 
@@ -3881,6 +4561,13 @@ def main() -> int:
         perf, perf_launches = performance(work_dir, card)
         emit({"phase": "performance", "elapsed_s": time.time() - _STARTED,
               **perf})
+        # ---- 4j. the CDC ingestion stack, then its networked broker ----
+        cdc, cdc_launches, cdc_net, cdc_net_launches = cdc_ingest(
+            dev, work_dir, card)
+        emit({"phase": "cdc_ingest", "elapsed_s": time.time() - _STARTED,
+              **cdc})
+        emit({"phase": "cdc_network", "elapsed_s": time.time() - _STARTED,
+              **cdc_net})
         cost = instrumentation_cost()
         per_stream = stream["backends"]["fused"]["counters"]
         emit({"phase": "instrumented_seconds", "card": card,
@@ -3917,6 +4604,8 @@ def main() -> int:
         "replicated_counter": repl_launches,
         "counter_service": svc_launches,
         "performance": perf_launches,
+        "cdc_ingest": cdc_launches,
+        "cdc_network": cdc_net_launches,
     }
     launches_by_path = {p: {k: c[k] for k in sources}
                         for p, c in launches_by_path.items()}

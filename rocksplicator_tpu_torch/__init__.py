@@ -11,6 +11,18 @@ card unless the caller asks for the CPU (``device="cpu"``), where every
 kernel's plain PyTorch version runs instead.
 """
 
-from .device import resolve_device
+# Arm the lock-order watchdog from the environment before any module of
+# the package constructs a lock (module-level locks are built when their
+# module is imported, which follows this line), and before torch is
+# imported. Nothing is patched when RSTPU_LOCKWATCH is unset. Child
+# processes inherit the variable and arm themselves here.
+import os as _os
+
+if _os.environ.get("RSTPU_LOCKWATCH"):
+    from .testing import lockwatch as _lockwatch
+
+    _lockwatch.maybe_install()
+
+from .device import resolve_device  # noqa: E402
 
 __all__ = ["resolve_device"]

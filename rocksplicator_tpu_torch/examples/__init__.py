@@ -1,2 +1,3 @@
-"""The port's example applications: the counter service
-(``examples/counter_service`` in the JAX package's repository)."""
+"""The port's example applications: the counter service and the queue
+consumer (``examples/counter_service`` and ``examples/kafka_consumer_app``
+in the JAX package's repository)."""

@@ -13,9 +13,9 @@ engine finds a backend by duck typing (``merge_runs``,
 
 It gives work to the CPU only where the reference does by design: a
 custom merge operator, entries the lanes cannot hold (keys over 24 bytes,
-values over 8 bytes on the tuple path), MERGE records without an
-operator, values that are not 8 bytes long under uint64-add, and a
-launch that raises ``needs_cpu_fallback``. A kernel that does not build
+values over ``MAX_TUPLE_VAL_BYTES`` on the tuple path), MERGE records
+without an operator, values that are not 8 bytes long under uint64-add,
+and a launch that raises ``needs_cpu_fallback``. A kernel that does not build
 or launch raises. Key-range subcompactions (``max_subcompactions > 1``)
 resolve every slice of a job in ONE batched launch
 (``gpu/compaction_service.resolve_slices_batched``). A job whose projected
@@ -56,6 +56,23 @@ _PUT, _DELETE, _MERGE = 1, 2, 3
 # The largest batch one launch merges (the reference's MAX_TPU_ENTRIES):
 # larger ones fold per-run chunks, then summaries, at this launch shape.
 MAX_LAUNCH_ENTRIES = 1 << 22
+
+
+# The tuple path packs its value lanes as wide as the widest value, up to
+# this many bytes (64 value words at 256 B). The reference packs 8 bytes
+# and takes any wider value to the host, which would leave every
+# compaction of a DB of wider values (a CDC shard's) off the card.
+MAX_TUPLE_VAL_BYTES = 1 << 10
+
+
+def _tuple_val_bytes(entries) -> int:
+    """Value-lane bytes for the tuple path's entries: the widest value
+    rounded up to a whole word, at least 8 (UnsupportedBatch past
+    ``MAX_TUPLE_VAL_BYTES``: the host merges those)."""
+    widest = max((len(e[3]) for e in entries), default=0)
+    if widest > MAX_TUPLE_VAL_BYTES:
+        raise UnsupportedBatch(f"value too long for the lanes: {widest}")
+    return max(8, -(-widest // 4) * 4)
 
 
 def _merge_kind(merge_op) -> MergeKind:
@@ -110,8 +127,10 @@ class GpuCompactionBackend:
         if total > MAX_LAUNCH_ENTRIES:
             result = self._chunked(run_lists, merge_op, drop_tombstones)
             return cpu() if result is None else iter(result)
+        entries = [e for run in run_lists for e in run]
         try:
-            batch = pack_entries([e for run in run_lists for e in run])
+            batch = pack_entries(entries,
+                                 val_bytes=_tuple_val_bytes(entries))
         except UnsupportedBatch:
             return cpu()
         if merge_op is None and bool((batch.vtype == _MERGE).any()):
@@ -124,7 +143,9 @@ class GpuCompactionBackend:
                  drop_tombstones) -> Optional[List[Entry]]:
         kind = _merge_kind(merge_op)
         try:
-            run_batches = [pack_entries(run) for run in runs]
+            val_bytes = max(_tuple_val_bytes(run) for run in runs)
+            run_batches = [pack_entries(run, val_bytes=val_bytes)
+                           for run in runs]
         except UnsupportedBatch:
             return None
         if kind is MergeKind.NONE and any(

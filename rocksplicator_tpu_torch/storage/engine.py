@@ -1556,6 +1556,12 @@ class DB:
             self._bg_thread is None  # bg mode compacts on its own thread
             and not self.options.disable_auto_compaction
             and len(self._levels[0]) >= self.options.level0_compaction_trigger
+            # A full compaction (compact_range, a batched plan) merges off
+            # this lock holding the mutex and installs at the bottom level.
+            # An L0 compaction beside it would see no level below L1, drop
+            # tombstones, and leave the older versions it is about to
+            # install there live again. L0 waits for the next flush.
+            and not self._compaction_mutex.locked()
         ):
             self._compact_level0_locked()
 

@@ -7,8 +7,10 @@ compacts and reopens a DB with the host and the card's backends, and its
 remote compaction tier (a coordinator, a worker on the card's backend, a
 leader) offloads one compaction, and a replicated shard (a leader and a
 follower behind admin handlers) adds a DB, replicates, compacts and reads
-back, and a two-node counter service serves a routed bump and a get, on
-the CPU with both blocked, counting into the port's own Stats; the
+back, and a two-node counter service serves a routed bump and a get, and
+its kafka stack ingests a topic into a DB and publishes a CDC observer's
+updates into a queue, on the CPU with both blocked, counting into the
+port's own Stats; the
 counter service's main refuses to start without CUDA before it opens a
 DB.
 
@@ -87,7 +89,12 @@ seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
         "examples.counter_service.counter_router",
         "examples.counter_service.counter_service",
         "examples.counter_service.stress_test",
-        "replication.performance"}
+        "replication.performance", "kafka", "kafka.broker",
+        "kafka.checkpoint", "kafka.wire", "kafka.network", "kafka.watcher",
+        "kafka.publisher", "kafka.ingestion", "admin.cdc",
+        "examples.kafka_consumer_app",
+        "examples.kafka_consumer_app.kafka_consumer_app",
+        "testing.lockwatch", "testing.lock_order"}
 missing = {m for m in seam if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 print("IMPORTED", len(names))
@@ -414,6 +421,61 @@ with tempfile.TemporaryDirectory() as d:
         handler.close()
         replicator.stop()
 print("COUNTER_SERVICE_ON_CPU")
+
+# the kafka stack: an embedded topic ingested into a port DB by the
+# exactly-once watcher, a CDC observer publishing into a queue, and the
+# consumer app's command line
+import contextlib, io
+from rocksplicator_tpu_torch.admin import CdcAdminHandler
+from rocksplicator_tpu_torch.examples.kafka_consumer_app import (
+    kafka_consumer_app)
+from rocksplicator_tpu_torch.kafka.broker import MockConsumer, get_cluster
+from rocksplicator_tpu_torch.kafka.checkpoint import read_watermark
+from rocksplicator_tpu_torch.kafka.ingestion import start_ingestion
+from rocksplicator_tpu_torch.kafka.publisher import QueuePublisher
+cluster = get_cluster("iso")
+cluster.create_topic("t", 1)
+for i in range(20):
+    cluster.produce("t", 0, b"k%02d" % i, b"" if i % 7 == 3 else b"v%d" % i)
+with tempfile.TemporaryDirectory() as d:
+    db = DB(d, DBOptions(compaction_backend=NativeCompactionBackend()))
+    watcher = start_ingestion(None, "iso00000", db, "t", "embedded://iso", 0)
+    deadline = time.monotonic() + 30
+    while (read_watermark(db, "t", 0) or {}).get("offset") != 20:
+        assert time.monotonic() < deadline, "the watcher did not apply"
+        time.sleep(0.02)
+    watcher.stop()
+    assert db.get(b"k03") is None and db.get(b"k19") == b"v19"
+    db.close()
+    leader = Replicator(port=0, flags=flags)
+    observer_host = Replicator(port=0, flags=flags)
+    ldb = DB(d + "/leader", DBOptions(
+        compaction_backend=NativeCompactionBackend()))
+    from rocksplicator_tpu_torch.replication import (ReplicaRole,
+                                                     StorageDbWrapper)
+    rdb = leader.add_db("seg00002", StorageDbWrapper(ldb),
+                        ReplicaRole.LEADER)
+    cdc = CdcAdminHandler(observer_host, QueuePublisher("out", cluster, 4))
+    observer_host.ioloop.run_coro(cdc.handle_add_observer(
+        db_name="seg00002", upstream_ip="127.0.0.1",
+        upstream_port=leader.port)).result(30)
+    rdb.write(WriteBatch().put(b"cdc", b"1"))
+    consumer = MockConsumer(cluster)
+    consumer.assign("out", [2])
+    msg = consumer.consume(30.0)
+    assert msg is not None and msg.key == b"seg00002:1", msg
+    cdc.close()
+    observer_host.stop()
+    leader.stop()
+    ldb.close()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        kafka_consumer_app.main(["--help"])
+    except SystemExit as exc:
+        assert exc.code == 0, exc
+assert "--broker" in out.getvalue()
+print("KAFKA_ON_CPU")
 rc = chip_smoke.main()
 assert rc != 0, rc
 print("SMOKE_REFUSES", rc)
@@ -441,6 +503,7 @@ def test_port_imports_without_jax_and_refuses_cpu_fallback():
     assert "REMOTE_ON_CPU" in res.stdout
     assert "REPLICATED_ON_CPU" in res.stdout
     assert "COUNTER_SERVICE_ON_CPU" in res.stdout
+    assert "KAFKA_ON_CPU" in res.stdout
     assert "SMOKE_REFUSES" in res.stdout
     assert '"ok"' not in res.stdout
 
@@ -513,5 +576,7 @@ def test_port_failpoint_sites_are_registered():
               "repl.read.serve", "repl.mux.apply", "repl.mux.serve",
               "admin.ingest.engine", "admin.ingest.meta",
               # the router and the HDFS store
-              "router.read_pick", "router.hedge.fire", "hdfs.request"}
+              "router.read_pick", "router.hedge.fire", "hdfs.request",
+              # the CDC consumer
+              "kafka.fetch", "kafka.apply", "kafka.checkpoint"}
     assert dead == set(REGISTRY) - ported

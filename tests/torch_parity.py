@@ -290,8 +290,8 @@ def tsst_digests(db) -> list:
 
 
 def reset_both():
-    """Zero both packages' Stats, spans (every root kept), failpoints and
-    tenant admission."""
+    """Zero both packages' Stats, spans (every root kept), failpoints,
+    tenant admission and embedded Kafka cluster registries."""
     import importlib
 
     tops = [importlib.import_module(n) for n in PACKAGES.values()]
@@ -299,3 +299,5 @@ def reset_both():
     for n in PACKAGES.values():
         importlib.import_module(n + ".rpc.admission").TenantAdmission \
             .reset_for_test()
+        importlib.import_module(n + ".kafka.broker") \
+            .reset_clusters_for_test()
