@@ -63,18 +63,18 @@ PyTorch built for CUDA. It
    sink's, no DB compacted by the per-DB fallback, no error logged by the
    port's admin logger);
 4f. drives the port's storage engine, ``storage.DB``, in the
-   environment's stream mode: the counter traffic (4 x 2^19 ops in
+   environment's stream mode: the counter traffic (4 x 2^18 ops in
    WriteBatches of 1024) through ``DB.write`` into a DB that compacts on
    the card (fused) and one on the host (``NativeCompactionBackend``), and
    run 4 into a third, on the card (bitonic), opened from the host DB's
-   checkpoint after run 3, each run's last batch flushing 2^19
+   checkpoint after run 3, each run's last batch flushing 2^18
    entries and the fourth flush compacting L0 inline, then
    ``compact_range`` (``engine_db``: files byte for byte against the
    host DB's, one K2 (K1) call a compaction and one K3 call a file, every
    key of the fused DB read back through ``multi_get`` and a full scan
    against a numpy oracle, the native library loaded, host-clock seconds
-   of each write run, flush and compaction); the same traffic at half
-   the depth (4 x 2^18 ops, under a quarter of the default memory
+   of each write run, flush and compaction); the same traffic
+   (4 x 2^18 ops, under a quarter of the default memory
    budget) from 4 writer threads into a DB with background flush and compaction and its
    default backend, the card (``engine_db_background``: K2 launched from
    the compaction thread before ``compact_range``, no background failure,
@@ -112,7 +112,8 @@ PyTorch built for CUDA. It
    (``remote_worker``: job A, the leader's own L0 pick at the trigger over
    a local store under a 1 GiB budget, in RAM: one K2 call and one K3
    call a file; job B, ``maybe_offload`` over the port's S3 stub under
-   the default 256 MiB budget, streamed: one K2 call a chunk and no K3;
+   a 128 MiB budget, half the default, streamed: one K2 call a chunk and
+   no K3;
    each installed generation sha256-identical to the same data compacted
    by ``compact_range`` on a host DB under the same budget, every key of
    A and a sample of B read back against the numpy oracle, one claim a
@@ -142,9 +143,9 @@ PyTorch built for CUDA. It
    (``counter_service``): two port node processes (``python -m
    rocksplicator_tpu_torch.examples.counter_service.counter_service``,
    the default device, the card) from one static shard map of 2 shards,
-   each leading one and following the other; 2^20 counters bulk-loaded
+   each leading one and following the other; 2^19 counters bulk-loaded
    by ``add_s3_sst_files_to_db(compact_db_after_load=True)`` on every
-   replica; the port's ``stress_test`` (8 threads x 4096 routed gets and
+   replica; the port's ``stress_test`` (8 threads x 2048 routed gets and
    bumps) against one node with 0 errors; ``compact_db`` on every
    replica; every bumped counter and a seeded sample read back from
    every replica equal to the numpy oracle; both status servers'
@@ -153,12 +154,12 @@ PyTorch built for CUDA. It
    directory scanned on the host, leader equal to follower and to the
    oracle; then the replication harness as two processes
    (``performance``: its throughput line and launch counts);
-4j. drives the CDC ingestion stack (``cdc_ingest``): 2^17 CDC records
-   (11-byte keys from a space of 2^16, 256-byte values, a tenth deletes)
+4j. drives the CDC ingestion stack (``cdc_ingest``): 2^16 CDC records
+   (11-byte keys from a space of 2^15, 256-byte values, a tenth deletes)
    from an embedded topic through A's ``start_message_ingestion`` into a
    three-replica shard in ack mode 1 (A leading and B following on the
    card, C following on the host) with a CDC observer D on A, the first
-   2^15 produced before the start and the rest offered at 100,000 a
+   2^14 produced before the start and the rest offered at 100,000 a
    second; ``compact_db`` on C, B, A at half and on each after the drain:
    every key against the oracle on A, B and C, watermarks and applies
    counters, sha256-equal files, D's batches replaying to A's state, K2
@@ -170,8 +171,8 @@ PyTorch built for CUDA. It
    after ``compact_db``, the app printing every record, DB_ADMIN_ERROR for
    an unknown topic, exit 0 on SIGINT);
 4k. drives the cluster control plane over card nodes
-   (``cluster_failover``: 32 semi-sync shards, a leader host's crash and
-   a replacement host's catch-up under a storm of 2^20 counter ops);
+   (``cluster_failover``: 16 semi-sync shards, a leader host's crash and
+   a replacement host's catch-up under a storm of 2^18 counter ops);
 4l. drives shard movement as an operator does (``cluster_reshape``: the
    same control plane over nodes A, B, D on the card and C on the host;
    ``admin_cli move-shard`` and ``split-shard`` as processes under live
@@ -179,6 +180,19 @@ PyTorch built for CUDA. It
    tuple path, then the port's ``Rebalancer`` moving a shard that runs
    hot; every key read back through a router over the published map,
    every replica scanned against the numpy oracle);
+4m. drives the chaos harness's decks with every DB on the card
+   (``chaos_dataplane``: the port's ``run_chaos`` at the Makefile's 20
+   schedules and seed 1, its mux deck under RSTPU_PULL_MUX=1 (6
+   schedules, seed 3), its ``wal_hole``, ``meta_first``,
+   ``mux_misroute`` and ``remote_install`` teeth at the Makefile's
+   arguments, and the ingest fixture's ``compact_db_after_load`` branch
+   once a fault of its menu; ``chaos_cdc``: ``run_cdc_chaos`` at 2
+   schedules and seed 1 and its ``cdc_dedup`` tooth): no violation in a
+   healthy deck, every tooth caught, K2 and K3 launched, the remote
+   fixture both installing and fencing, no tuple-path fallback, the
+   background compactions the loop retried counted (and among them the
+   card's raises), the failpoints cleared and the chaos scale restored
+   however the phase ends;
 
 Every phase raises on failure and the script then exits non-zero. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -187,6 +201,7 @@ result. The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import shutil
 import statistics
@@ -201,6 +216,7 @@ BENCH_SHARDS = 8
 BIG_N = 1 << 22
 DEVICE = "cuda"
 REPS = 10
+STACKS_AFTER_S = 1140
 SHORT_REPS = 50  # host-bound shapes (< ~10 ms a call)
 # the engine seam: runs of 2^20 entries, four of which fill one launch
 # (the backend's MAX_LAUNCH_ENTRIES), and DBOptions' target_file_bytes
@@ -1437,9 +1453,14 @@ def batch_compactor(dev, prepared: tuple, card: str) -> tuple:
 # ---- the port's storage engine on the card ---------------------------------
 # engine_db (and remote_worker): 4 runs of this many counter ops, written
 # through DB.write in WriteBatches of ENGINE_BATCH ops, one memtable flush
-# a run; half of one launch (MAX_TPU_ENTRIES) in all, to keep the
-# command's time
-ENGINE_RUN_ENTRIES = 1 << 19
+# a run; a quarter of one launch (MAX_TPU_ENTRIES) in all, to keep the
+# command's time (half until the chip check stopped a command of 888.3 s
+# at 1,200 s on a slower host of the same kind)
+ENGINE_RUN_ENTRIES = 1 << 18
+# remote_worker's job B: half the default 256 MiB compaction budget, so
+# that the worker streams the quarter-launch job as it streamed the
+# half-launch one under the default
+REMOTE_B_BUDGET_BYTES = 128 << 20
 # engine_db_background's runs: a quarter of MAX_TPU_ENTRIES, to keep the
 # command's time, under a quarter of the default 256 MiB compaction
 # budget, so that its compactions stream as they do at full depth under
@@ -1669,17 +1690,17 @@ def _timed_db(db, backend, log: list) -> None:
 
 def engine_db(dev, traffic: dict, work_dir: str, card: str,
               run3_checkpoint: str = "") -> tuple:
-    """The port's DB at half of MAX_TPU_ENTRIES: the counter traffic written
+    """The port's DB at a quarter of MAX_TPU_ENTRIES: the counter traffic written
     through DB.write into a DB that compacts on the card under the fused
     sort backend (K2) and one that compacts on the host (the port's
     NativeCompactionBackend); a third DB, on the card under the bitonic
     sort backend (K1 and the torch resolve), starts from the host DB's
     checkpoint after its third run and takes run 4's writes, so it
-    compacts the same 2^21 entries without writing runs 1-3 again.
+    compacts the same 2^20 entries without writing runs 1-3 again.
     DBOptions' defaults otherwise (32 KiB blocks, zlib, 10 bits a key, 64 MiB files),
     UInt64AddOperator, level0_compaction_trigger 4, inline flushes and
-    compactions. Each run's last batch flushes 2^19 entries; the fourth
-    flush compacts L0 into L1 (2^21 entries), then compact_range()
+    compactions. Each run's last batch flushes 2^18 entries; the fourth
+    flush compacts L0 into L1 (2^20 entries), then compact_range()
     compacts everything into the bottom level. ``max_subcompactions`` is
     1 (the host's slices write a file set each, the card's one), and the
     memory budget 1 GiB (the in-RAM route: one K2 call a compaction).
@@ -2103,8 +2124,8 @@ def remote_worker(dev, traffic: dict, base3: str, work_dir: str,
     Job A (local store, leader budget 1 GiB): a leader holding runs 1-3
     with background compaction (the legacy L0 trigger, 4) takes run 4's
     writes; its own L0 pick reaches maybe_offload, and the worker merges
-    the 2^21 entries in RAM: one K2 call and one K3 call a file. Job B
-    (the port's S3 stub, the default 256 MiB budget): maybe_offload on a
+    the 2^20 entries in RAM: one K2 call and one K3 call a file. Job B
+    (the port's S3 stub, REMOTE_B_BUDGET_BYTES): maybe_offload on a
     leader holding the 4 runs; the worker streams: K2 calls = chunks, no
     K3. Each installed generation must be sha256-identical, file for file,
     to the same data compacted by compact_range on a host DB under the
@@ -2166,7 +2187,7 @@ def remote_worker(dev, traffic: dict, base3: str, work_dir: str,
 
     # the comparators: the same data compacted on the host, one a budget
     comparators = {}
-    for tag, budget in (("A", 1 << 30), ("B", 0)):
+    for tag, budget in (("A", 1 << 30), ("B", REMOTE_B_BUDGET_BYTES)):
         db = DB(os.path.join(root, f"comp_{tag}"), options(budget))
         try:
             t1 = time.time()
@@ -2239,7 +2260,8 @@ def remote_worker(dev, traffic: dict, base3: str, work_dir: str,
         job_a["leader_write_run4_s"] = write_a_s
         report["jobs"]["A"] = job_a
         # ---- job B: maybe_offload on the 4 runs, streamed -------------
-        leaders["B"] = DB(os.path.join(root, "B"), options())
+        leaders["B"] = DB(os.path.join(root, "B"),
+                          options(REMOTE_B_BUDGET_BYTES))
         mgrs["B"] = RemoteCompactionManager(
             "remote-B", leaders["B"], client(), stores["B"], policy=policy)
         timed["B"] = _Timed(mgrs["B"])
@@ -2666,9 +2688,11 @@ def replicated_counter(dev, traffic: dict, work_dir: str,
     DBs open by add_db RPCs through a port RpcClientPool; ``traffic``
     (4 x REPL_RUN_ENTRIES ops, key space 2^19) is pipelined through A's
     ApplicationDB.write_async in WriteBatches of ENGINE_BATCH under the
-    default write window; B and C catch up to A's sequence number;
-    compact_db runs on A, B and C; B is backed up by backup_db_to_s3 into
-    the port's S3 stub and restored into D by restore_db_from_s3.
+    default write window, each replica flushing once a run's last op has
+    reached it; B and C catch up to A's sequence number; once A's and
+    B's background compactions have run, compact_db runs on A, B and C;
+    B is backed up by backup_db_to_s3 into the port's S3 stub and
+    restored into D by restore_db_from_s3.
     Every key reads back from A and B equal to the numpy oracle; A's, B's
     and C's live files are sha256-equal as a multiset and their sequence
     numbers equal; D's files equal B's at the backup, its sequence number
@@ -2680,6 +2704,7 @@ def replicated_counter(dev, traffic: dict, work_dir: str,
     is left in background error."""
     import hashlib
     import os
+    import threading
 
     import numpy as np
     import torch
@@ -2780,26 +2805,74 @@ def replicated_counter(dev, traffic: dict, work_dir: str,
                     lambda _f, t=t: acks.append(time.perf_counter() - t))
                 waiters.append(w)
 
+        # A, B and C each flush once a run's last op has reached them, in
+        # a thread of their own: the background flush merges memtables
+        # that queue behind a slow flush into one L0 file, so the four
+        # runs left as few as 2 files a replica, and the background pick
+        # (the L0 trigger, 4) then raced compact_db's flush and merge,
+        # which won once on the card
+        seq0 = leader.latest_sequence_number()
+        run_ends = [seq0 + sum(len(r[0]) for r in traffic["ops"][:k + 1])
+                    for k in range(len(traffic["ops"]))]
+        flush_errors, stop_flush = [], threading.Event()
+
+        def flush_at_run_ends(tag):
+            db = app_db(tag).db
+            try:
+                for end in run_ends:
+                    while db.latest_sequence_number() < end:
+                        if stop_flush.wait(0.02):
+                            return
+                    db.flush()
+            except Exception as exc:
+                flush_errors.append((tag, repr(exc)))
+
+        flushers = [threading.Thread(target=flush_at_run_ends, args=(t,),
+                                     daemon=True, name=f"repl-flush-{t}")
+                    for t in ("A", "B", "C")]
         torch.cuda.synchronize()
         _build.reset_launches()
         t0 = time.time()
-        for ids, vtype, vals, key_bytes in traffic["ops"]:
-            _write_ops(Pipelined, ids, vtype, vals, key_bytes,
-                       range(len(ids)))
-        submit_s = time.time() - t0
-        for w in waiters:
-            w.result(timeout=900)
-        write_s = time.time() - t0
-        want = leader.latest_sequence_number()
-        lag = {t: want - app_db(t).latest_sequence_number()
-               for t in ("B", "C")}
-        deadline = time.time() + 900
-        while seq("B") != want or seq("C") != want:
-            if time.time() > deadline:
-                raise AssertionError(f"replicated counter: followers at "
-                                     f"{seq('B')}, {seq('C')} of {want}")
+        for t in flushers:
+            t.start()
+        try:
+            for ids, vtype, vals, key_bytes in traffic["ops"]:
+                _write_ops(Pipelined, ids, vtype, vals, key_bytes,
+                           range(len(ids)))
+            submit_s = time.time() - t0
+            for w in waiters:
+                w.result(timeout=900)
+            write_s = time.time() - t0
+            want = leader.latest_sequence_number()
+            lag = {t: want - app_db(t).latest_sequence_number()
+                   for t in ("B", "C")}
+            deadline = time.time() + 900
+            while seq("B") != want or seq("C") != want:
+                if time.time() > deadline:
+                    raise AssertionError(f"replicated counter: followers "
+                                         f"at {seq('B')}, {seq('C')} of "
+                                         f"{want}")
+                time.sleep(0.05)
+            catch_up_s = time.time() - t0 - write_s
+            for t in flushers:
+                t.join(300)
+        finally:
+            stop_flush.set()
+        if flush_errors or any(t.is_alive() for t in flushers):
+            raise AssertionError(f"replicated counter: flushes "
+                                 f"{flush_errors}")
+
+        def background_calls(tag):
+            return sum(1 for c in list(log.calls) if c["replica"] == tag
+                       and c["thread"].startswith("lsm-compact-"))
+
+        # at least 4 L0 files: each card replica's background compaction
+        # runs, and is let finish before compact_db (the check below
+        # fails if it never comes)
+        deadline = time.time() + 300
+        while (background_calls("A") < 1 or background_calls("B") < 1) \
+                and time.time() < deadline:
             time.sleep(0.05)
-        catch_up_s = time.time() - t0 - write_s
         acked = sum(1 for w in waiters if w.acked)
         lat = sorted(acks)
         report.update(
@@ -2916,8 +2989,11 @@ def replicated_counter(dev, traffic: dict, work_dir: str,
 # counters through add_s3_sst_files_to_db on every replica, then the
 # port's stress_test, compact_db, reads, the status plane and SIGTERM.
 # The counters halved (2^21 before) once a card run of the whole command,
-# at 1,062.0 s on one H100 host, went past its 1,200 s limit on another
-COUNTERS = 1 << 20
+# at 1,062.0 s on one H100 host, went past its 1,200 s limit on another;
+# halved again (2^20 before), with the stress requests and the read sample,
+# once the whole command, at 888.3 s on one H100 host, went past its limit
+# on another, where the host-bound phases ran up to 1.9 times as long
+COUNTERS = 1 << 19
 COUNTER_SHARDS = 2
 COUNTER_FILES = 4  # SST files a shard's bulk load
 COUNTER_SEED = 1010
@@ -2926,8 +3002,8 @@ STRESS_THREADS = 8
 # the command's time once cluster_reshape came: with them and that phase's
 # own two cuts the command took 1363.9 s on the card; the requests halved
 # again with the counters
-STRESS_REQUESTS = 4096
-COUNTER_SAMPLE = 8192  # loaded counters read back from every replica
+STRESS_REQUESTS = 2048
+COUNTER_SAMPLE = 4096  # loaded counters read back from every replica
 COUNTER_READ_WINDOW = 512  # get_counter calls in flight at once
 COUNTER_DRAIN_S = 10.0  # GracefulShutdownHandler's default drain timeout
 # the nodes run the quick start's command; the device is its default,
@@ -3472,10 +3548,10 @@ def performance(work_dir: str, card: str) -> tuple:
 # for the command's time: 2^19 records (the phase took 469 s at 2^20, most
 # of it the consumer's backpressure sleeps), then 2^18 once cluster_reshape
 # came (the command took 1363.9 s at 2^19 with that phase's own two cuts),
-# then 2^17 with the counter service's counters, the key space halved each
-# time and the preload kept at a quarter
-CDC_RECORDS = 1 << 17
-CDC_KEY_SPACE = 1 << 16  # each key written about twice
+# then 2^17 with the counter service's counters, then 2^16 with them
+# again, the key space halved each time and the preload kept at a quarter
+CDC_RECORDS = 1 << 16
+CDC_KEY_SPACE = 1 << 15  # each key written about twice
 CDC_VALUE_BYTES = 256  # the macro bench's --cdc_value_bytes default
 CDC_DELETE_SHARE = 0.1  # empty values, applied as DELETEs
 CDC_PRELOAD = CDC_RECORDS // 4  # produced before start_message_ingestion
@@ -4095,9 +4171,15 @@ def cdc_network(admin, app_db, work_dir: str, card: str) -> tuple:
 # :173-176), as tools/chaos_soak.py FailoverCluster builds the topology
 
 CLUSTER_SHARDS = 32
+# cluster_failover's shards: half of soak_bench's 32, once the chip check
+# stopped a command of 888.3 s at 1,200 s on a slower host of the same kind
+# (the replacement's catch-up, compact_db and the checks go shard by shard)
+FAILOVER_SHARDS = 16
 CLUSTER_SEGMENT = "seg"
-CLUSTER_RUN_ENTRIES = 1 << 13  # 4 x 2^13 = 32,768 ops a shard, 2^20 in all
-CLUSTER_KEY_SPACE = 1 << 16  # twice a shard's ops
+# a shard's storm halved (32,768 ops before) for the command's time, with
+# the counter service's counters
+CLUSTER_RUN_ENTRIES = 1 << 12  # 4 x 2^12 = 16,384 ops a shard
+CLUSTER_KEY_SPACE = 1 << 15  # twice a shard's ops
 CLUSTER_SEED = 1212
 CLUSTER_WRITERS = 4
 CLUSTER_READERS = 2
@@ -4469,15 +4551,15 @@ def _cluster_wait(pred, what: str, detail, timeout: float = CLUSTER_WAIT_S,
 
 
 def _cluster_reader(seed: int, key_space: int, pick_app, reads: dict,
-                    stop) -> None:
-    """A reader thread's loop: a get of a random key of a random slot
-    from the ApplicationDB ``pick_app(rng, slot, key)`` names, its
+                    stop, shards: int = CLUSTER_SHARDS) -> None:
+    """A reader thread's loop: a get of a random key of one of ``shards``
+    slots from the ApplicationDB ``pick_app(rng, slot, key)`` names, its
     latency and outcome counted in ``reads``, until ``stop`` is set."""
     import random
 
     rng = random.Random(seed)
     while not stop.is_set():
-        slot = rng.randrange(CLUSTER_SHARDS)
+        slot = rng.randrange(shards)
         key = _key_of(rng.randrange(key_space))
         t_r = time.perf_counter()
         try:
@@ -4531,7 +4613,7 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
     every 0.3 s), a port Spectator
     publishing through LocalFilePublisher and CallbackPublisher with its
     stats scrape on, and one LeaderFollower resource ``seg`` of
-    CLUSTER_SHARDS shards, 3 replicas, semi-sync (ack mode 1 from the
+    FAILOVER_SHARDS shards, 3 replicas, semi-sync (ack mode 1 from the
     port's DBConfigManager). Nodes A, B (the card) and C (the host, the
     comparator) join at the start, each a port Replicator + AdminHandler
     + RpcServer + Participant with a backup store, its RPC on an event
@@ -4540,7 +4622,7 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
     with soak_bench's storm (64 KiB memtables, L0 trigger 3, background
     compaction) and one slice a compaction.
 
-    Storm: 2^20 ops of the counter mix (engine_traffic's 4 runs of distinct
+    Storm: 2^18 ops of the counter mix (engine_traffic's 4 runs of distinct
     keys a shard, key space twice a shard's ops), CLUSTER_WRITERS writer
     threads sending WriteBatches of ENGINE_BATCH through the leaders'
     ApplicationDB.write_async, CLUSTER_READERS reader threads on random
@@ -4589,7 +4671,7 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
     root = os.path.join(work_dir, "cluster")
     os.makedirs(root)
     _sort_flag(SEAM_FLAGS["fused"])
-    shards = range(CLUSTER_SHARDS)
+    shards = range(FAILOVER_SHARDS)
 
     def options(segment):
         return DBOptions(merge_operator=UInt64AddOperator(),
@@ -4611,8 +4693,8 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
     rejoins0 = Stats.get().get_counter("participant.rejoins")
     nodes, others = {}, []
     maps = []
-    report = {"card": card, "shards": CLUSTER_SHARDS,
-              "ops": CLUSTER_SHARDS * batches_per_shard * ENGINE_BATCH,
+    report = {"card": card, "shards": FAILOVER_SHARDS,
+              "ops": FAILOVER_SHARDS * batches_per_shard * ENGINE_BATCH,
               "batch": ENGINE_BATCH, "writers": CLUSTER_WRITERS,
               "readers": CLUSTER_READERS, "mode": 1}
     (primary_proc, primary_port), (standby_proc, standby_port) = \
@@ -4684,7 +4766,7 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
         for client in (controller.coord, spectator.coord, coord):
             probe.watch(client)
         controller.add_resource(ResourceDef(
-            CLUSTER_SEGMENT, num_shards=CLUSTER_SHARDS, replicas=3))
+            CLUSTER_SEGMENT, num_shards=FAILOVER_SHARDS, replicas=3))
         wait(lambda: converged(3) and led_everywhere(),
              "the initial assignment")
         report["setup_s"] = time.time() - t0
@@ -4765,7 +4847,8 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
 
         def reader(r):
             _cluster_reader(CLUSTER_SEED + 100 + r, CLUSTER_KEY_SPACE,
-                            on_any_replica, reads, stop_reads)
+                            on_any_replica, reads, stop_reads,
+                            FAILOVER_SHARDS)
 
         threads += ([threading.Thread(target=writer, args=(w,),
                                       name=f"cluster-writer-{w}",
@@ -4940,7 +5023,7 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
 
         wait(led_everywhere, "the published map's leaders", timeout=30)
         wait(lambda: len(spectator.cluster_stats.get("per_shard") or {})
-             == CLUSTER_SHARDS and all(
+             == FAILOVER_SHARDS and all(
                  len((spectator.cluster_stats["per_shard"].get(
                      _cluster_db(sh)) or {}).get("roles", {})) > 0
                  for sh in shards),
@@ -5035,16 +5118,18 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
 # ---- shard movement on card nodes ------------------------------------------
 # cluster_reshape: the topology of the reference's reshard and rebalance
 # harness, tools/chaos_soak.py FailoverCluster(num_nodes=4) (:875-948,
-# :2588-2620), at cluster_failover's shard count and storm options. An
+# :2588-2620), at soak_bench's shard count and storm options. An
 # operator moves a shard and splits the hot one through the port's
 # admin_cli, and the port's Rebalancer moves the next hot one.
 
 RESHAPE_SEED = 1414
-# base and hot loads cut from 2^19 to 2^18 ops each, for the command's time
-RESHAPE_BASE_RUN = 1 << 11  # 4 runs a shard: 2^18 ops over 32 shards
-RESHAPE_KEY_SPACE = 1 << 14  # twice a shard's base ops
-RESHAPE_HOT_RUN = 1 << 15  # 4 runs into H: 2^17 ops, half the hot load
-RESHAPE_HOT_KEY_SPACE = 1 << 19
+# base and hot loads cut from 2^19 to 2^18 ops each, then to 2^17 and 2^16
+# with the counter service's counters, for the command's time (a run is at
+# least one batch of ENGINE_BATCH ops)
+RESHAPE_BASE_RUN = 1 << 10  # 4 runs a shard: 2^17 ops over 32 shards
+RESHAPE_KEY_SPACE = 1 << 13  # twice a shard's base ops
+RESHAPE_HOT_RUN = 1 << 14  # 4 runs into H: 2^16 ops, half the hot load
+RESHAPE_HOT_KEY_SPACE = 1 << 18
 RESHAPE_COLD_RUN = 1 << 10  # 4 runs into each other shard: 126,976 ops
 RESHAPE_POLICY_RUN = 1 << 10  # 4 runs a shard in the policy step, sent twice
 RESHAPE_READ_KEYS = 1 << 13  # keys of the routed multi_get across the split
@@ -6188,6 +6273,351 @@ def cluster_reshape(dev, work_dir: str, card: str) -> tuple:
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# chaos_dataplane, chaos_cdc: the chaos harness's data-plane and CDC decks
+# (rocksplicator_tpu_torch/tools/chaos_soak.py) with every DB on the card.
+# The decks keep the reference's shapes (tools/chaos_soak.py:221-265: 32 KiB
+# memtables, L0 trigger 3, background compaction, subcompaction slices of
+# 256 entries, the streaming merge always on in 512-entry chunks), which
+# are the harness's own setting for fault-and-heal density; real data scale
+# is carried by the earlier phases. Arguments are the Makefile's:
+# chaos-smoke (:346-364), compaction-remote-smoke (:149) and cdc-smoke
+# (:416-422).
+# ---------------------------------------------------------------------------
+
+CHAOS_SCHEDULES = 20  # make chaos-smoke's soak
+CHAOS_SEED = 1
+CHAOS_MUX_SCHEDULES = 6  # the mux deck under RSTPU_PULL_MUX=1
+CHAOS_MUX_SEED = 3
+# (break guard, run_chaos arguments beside the defaults, a phrase one of
+# its violations must hold; None: any violation)
+CHAOS_TEETH = (
+    ("wal_hole", {"conv_timeout": 3.0}, "WAL hole"),
+    ("meta_first", {"ingest_every": 1, "conv_timeout": 10.0}, "meta"),
+    ("mux_misroute", {"conv_timeout": 3.0}, None),
+    ("remote_install", {"remote_every": 1, "conv_timeout": 3.0},
+     "DEPOSED LEADER'S JOB INSTALLED"),
+)
+CHAOS_TOOTH_SCHEDULES = 1
+CHAOS_TOOTH_SEED = 7
+CDC_CHAOS_SCHEDULES = 2  # make cdc-smoke
+CDC_CHAOS_SEED = 1
+CDC_TOOTH_SEED = 7
+
+
+class _BgFailures:
+    """Counts, from the port's engine logger, the background compactions
+    that failed and were retried by the loop (``storage/engine.py``: log,
+    sleep 1 s, pick again), and among them the card's raises: a direct
+    sink (``merge_runs_to_files``) failing inside ``_write_merged``,
+    which on the card raises where the CPU path takes the tuple path.
+    Also counts the tuple-path fallbacks, which the card never takes."""
+
+    FAILED = "background compaction failed"
+    FALLBACK = "direct merge sink failed"
+
+    def __init__(self):
+        import logging
+        import threading
+
+        self._lock = threading.Lock()
+        self.failures = 0
+        self.card_raises: dict = {}
+        self.fallbacks = 0
+        self._logger = logging.getLogger(
+            "rocksplicator_tpu_torch.storage.engine")
+        outer = self
+
+        class _Handler(logging.Handler):
+            def emit(self, record):
+                outer._record(record)
+
+        self._handler = _Handler(level=logging.ERROR)
+
+    def __enter__(self):
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+
+    def _record(self, record) -> None:
+        import re
+
+        msg = str(record.msg)
+        with self._lock:
+            if self.FALLBACK in msg:
+                self.fallbacks += 1
+                return
+            if self.FAILED not in msg:
+                return
+            self.failures += 1
+            exc = record.exc_info[1] if record.exc_info else None
+            frames, tb = set(), getattr(exc, "__traceback__", None)
+            while tb is not None:
+                frames.add(tb.tb_frame.f_code.co_name)
+                tb = tb.tb_next
+            if {"_write_merged", "merge_runs_to_files"} <= frames:
+                found = re.search(r"failpoint (\S+) tripped", str(exc))
+                site = found.group(1) if found else type(exc).__name__
+                self.card_raises[site] = self.card_raises.get(site, 0) + 1
+
+    def report(self) -> dict:
+        with self._lock:
+            return {"bg_failures_retried": self.failures,
+                    "card_raises_retried": sum(self.card_raises.values()),
+                    "card_raises_by_site": dict(self.card_raises),
+                    "tuple_fallbacks": self.fallbacks}
+
+
+def _chaos_knobs() -> tuple:
+    """The three module-wide settings the decks scope to their runs."""
+    from rocksplicator_tpu_torch.storage import native_compaction, stream_merge
+
+    return (native_compaction.MIN_SLICE_ENTRIES,
+            stream_merge.STREAM_MODE_OVERRIDE,
+            stream_merge.CHUNK_ENTRIES_OVERRIDE)
+
+
+def _set_chaos_knobs(knobs: tuple) -> None:
+    from rocksplicator_tpu_torch.storage import native_compaction, stream_merge
+
+    (native_compaction.MIN_SLICE_ENTRIES, stream_merge.STREAM_MODE_OVERRIDE,
+     stream_merge.CHUNK_ENTRIES_OVERRIDE) = knobs
+
+
+def _chaos_deck(run, what: str, dev, work_dir: str, **kw) -> tuple:
+    """One deck, its launches and failpoint trips counted alone:
+    (report, launches)."""
+    import torch
+
+    from rocksplicator_tpu_torch.ops import _build
+
+    reset_observability()
+    root = tempfile.mkdtemp(prefix=f"{what}_", dir=work_dir)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with _BgFailures() as bg:
+            result = run(root, log=lambda *a: None, device=dev, **kw)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(_build.LAUNCHES)
+    report = {k: result[k] for k in (
+        "schedules", "seed", "writes", "acked", "produced", "kills",
+        "consumer_starts", "scenarios", "violations", "failpoint_trips",
+        "remote_outcomes", "break_guard") if k in result}
+    report.update(bg.report())
+    report["seconds"] = time.perf_counter() - t0
+    report["k2"] = launches["fused_resolve"]
+    report["k3"] = launches["bloom_build"]
+    return report, launches
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _check_tooth(report: dict, phrase, what: str) -> None:
+    caught = report["violations"] and (
+        phrase is None or any(phrase in v for v in report["violations"]))
+    if not caught:
+        raise AssertionError(f"{what}: the tooth was NOT caught "
+                             f"(violations {report['violations']})")
+    report["caught"] = True
+    report["first_violation"] = report["violations"][0]
+    report["violations"] = len(report["violations"])
+
+
+class _PinnedIngestDraws:
+    """A schedule RNG for ``IngestFixture.step`` that pins the drawn
+    ingest fault to ``fault`` and draws ``compact_db_after_load`` true;
+    every other draw is the seeded RNG's."""
+
+    def __init__(self, seed: int, fault, menu):
+        import random
+
+        self._rng = random.Random(seed)
+        self._fault, self._menu = fault, menu
+
+    def randint(self, a: int, b: int) -> int:
+        return self._rng.randint(a, b)
+
+    def choice(self, seq):
+        return self._fault if seq is self._menu else self._rng.choice(seq)
+
+    def random(self) -> float:
+        return 0.0
+
+
+def _ingest_compact_run(root: str, log, device, seed: int) -> dict:
+    """The ingest fixture's ``compact_db_after_load`` branch, once per
+    entry of its fault menu, on ``device``: each load's post-ingest
+    compaction goes through the admin plane's BatchCompactor (K2, and K3
+    a file), and invariant 3 holds after each (``IngestFixture._check``,
+    a clean retry after a fault). The Makefile's seeds draw that branch
+    false in every deck, so this is the decks' only way to it."""
+    from rocksplicator_tpu_torch.replication import Replicator
+    from rocksplicator_tpu_torch.testing import failpoints as fp
+    from rocksplicator_tpu_torch.tools.chaos_soak import (_INGEST_FAULTS,
+                                                          FLAGS,
+                                                          IngestFixture)
+
+    violations: list = []
+    fp.clear()
+    rep = Replicator(port=0, flags=FLAGS)
+    fixture = None
+    try:
+        fixture = IngestFixture(root, rep, device=device)
+        for i, fault in enumerate(_INGEST_FAULTS):
+            fixture.step(_PinnedIngestDraws(seed * 1_000_003 + i, fault,
+                                            _INGEST_FAULTS),
+                         violations, f"ingest_compact {i} ({fault})")
+    finally:
+        fp.clear()
+        if fixture is not None:
+            fixture.close()
+        rep.stop()
+    return {"schedules": len(_INGEST_FAULTS), "seed": seed,
+            "violations": violations, "failpoint_trips": fp.trip_counts()}
+
+
+def chaos_dataplane(dev, work_dir: str, card: str) -> tuple:
+    """The data-plane deck on the card: ``run_chaos`` at the reference's
+    defaults (80 writes, an ingest every 4 schedules, a remote scenario
+    every 3), then the mux deck under RSTPU_PULL_MUX=1, then the four
+    data-plane teeth, each of which must be caught, then the ingest
+    fixture's post-ingest compactions (``_ingest_compact_run``). Every
+    DB, the ingest handler's and the remote worker's merges run on
+    ``dev``. Fails on any
+    violation of a healthy deck, a tooth not caught, no K2 or no K3
+    launch, a remote fixture that never installs or never fences, or a
+    tuple-path fallback. The failpoints are cleared and the chaos knobs
+    and RSTPU_PULL_MUX restored however it ends."""
+    import os
+
+    from rocksplicator_tpu_torch.testing import failpoints as fp
+    from rocksplicator_tpu_torch.tools.chaos_soak import run_chaos
+
+    knobs = _chaos_knobs()
+    saved_mux = os.environ.get("RSTPU_PULL_MUX")
+    launches: dict = {}
+    report = {"card": card, "decks": {}}
+    t0 = time.perf_counter()
+    try:
+        os.environ.pop("RSTPU_PULL_MUX", None)
+        soak, n = _chaos_deck(run_chaos, "chaos", dev, work_dir,
+                              schedules=CHAOS_SCHEDULES, seed=CHAOS_SEED)
+        _add_launches(launches, n)
+        report["decks"]["soak"] = soak
+        os.environ["RSTPU_PULL_MUX"] = "1"
+        try:
+            mux, n = _chaos_deck(run_chaos, "chaos_mux", dev, work_dir,
+                                 schedules=CHAOS_MUX_SCHEDULES,
+                                 seed=CHAOS_MUX_SEED)
+        finally:
+            os.environ.pop("RSTPU_PULL_MUX", None)
+        _add_launches(launches, n)
+        report["decks"]["mux"] = mux
+        for deck in (soak, mux):
+            if deck["violations"]:
+                raise AssertionError(
+                    f"chaos_dataplane: violations in a healthy deck "
+                    f"(seed {deck['seed']}): {deck['violations']}")
+        outcomes = soak["remote_outcomes"]
+        for end in ("installed", "fenced"):
+            if not any(k.endswith(":" + end) for k in outcomes):
+                raise AssertionError(
+                    f"chaos_dataplane: the remote fixture never reached "
+                    f"{end} ({outcomes})")
+        for guard, kw, phrase in CHAOS_TEETH:
+            tooth, n = _chaos_deck(
+                run_chaos, f"chaos_{guard}", dev, work_dir,
+                schedules=CHAOS_TOOTH_SCHEDULES, seed=CHAOS_TOOTH_SEED,
+                break_guard=guard, **kw)
+            _add_launches(launches, n)
+            _check_tooth(tooth, phrase, f"chaos_dataplane {guard}")
+            report["decks"][guard] = tooth
+        ingest, n = _chaos_deck(_ingest_compact_run, "chaos_ingest", dev,
+                                work_dir, seed=CHAOS_SEED)
+        _add_launches(launches, n)
+        report["decks"]["ingest_compact"] = ingest
+        if ingest["violations"]:
+            raise AssertionError(
+                f"chaos_dataplane: violations in the post-ingest "
+                f"compactions: {ingest['violations']}")
+        for name, deck in report["decks"].items():
+            if deck["tuple_fallbacks"]:
+                raise AssertionError(
+                    f"chaos_dataplane {name}: {deck['tuple_fallbacks']} "
+                    f"card compactions took the host's tuple path")
+        if not launches.get("fused_resolve") or not launches.get(
+                "bloom_build"):
+            raise AssertionError(
+                f"chaos_dataplane: K2 and K3 must both launch ({launches})")
+    finally:
+        fp.clear()
+        leaked = _chaos_knobs() != knobs
+        _set_chaos_knobs(knobs)
+        if saved_mux is None:
+            os.environ.pop("RSTPU_PULL_MUX", None)
+        else:
+            os.environ["RSTPU_PULL_MUX"] = saved_mux
+    if leaked:
+        raise AssertionError("chaos_dataplane: a deck left the chaos "
+                             "scale set")
+    report["seconds"] = time.perf_counter() - t0
+    report["card_raises_retried"] = sum(
+        d["card_raises_retried"] for d in report["decks"].values())
+    return report, launches
+
+
+def chaos_cdc(dev, work_dir: str, card: str) -> tuple:
+    """The CDC deck on the card: ``run_cdc_chaos`` (2 schedules, seed 1)
+    with no violation, then its ``cdc_dedup`` tooth (1 schedule, seed 7),
+    which must be caught by the applies witness. The three-replica
+    group compacts on ``dev``."""
+    from rocksplicator_tpu_torch.testing import failpoints as fp
+    from rocksplicator_tpu_torch.tools.chaos_soak import run_cdc_chaos
+
+    knobs = _chaos_knobs()
+    launches: dict = {}
+    report = {"card": card, "decks": {}}
+    t0 = time.perf_counter()
+    try:
+        deck, n = _chaos_deck(run_cdc_chaos, "chaos_cdc", dev, work_dir,
+                              schedules=CDC_CHAOS_SCHEDULES,
+                              seed=CDC_CHAOS_SEED)
+        _add_launches(launches, n)
+        report["decks"]["cdc"] = deck
+        if deck["violations"]:
+            raise AssertionError(
+                f"chaos_cdc: violations in the healthy deck: "
+                f"{deck['violations']}")
+        tooth, n = _chaos_deck(run_cdc_chaos, "chaos_cdc_dedup", dev,
+                               work_dir, schedules=CHAOS_TOOTH_SCHEDULES,
+                               seed=CDC_TOOTH_SEED, break_guard="cdc_dedup")
+        _add_launches(launches, n)
+        _check_tooth(tooth, "applies_total", "chaos_cdc cdc_dedup")
+        report["decks"]["cdc_dedup"] = tooth
+        for name, d in report["decks"].items():
+            if d["tuple_fallbacks"]:
+                raise AssertionError(
+                    f"chaos_cdc {name}: {d['tuple_fallbacks']} card "
+                    f"compactions took the host's tuple path")
+    finally:
+        fp.clear()
+        leaked = _chaos_knobs() != knobs
+        _set_chaos_knobs(knobs)
+    if leaked:
+        raise AssertionError("chaos_cdc: a deck left the chaos scale set")
+    report["seconds"] = time.perf_counter() - t0
+    return report, launches
+
+
 def main() -> int:
     import os
 
@@ -6225,6 +6655,9 @@ def main() -> int:
     from rocksplicator_tpu_torch.storage.bloom import num_words_for
     from rocksplicator_tpu_torch.storage.records import OpType
 
+    # a run still going near the 1,200 s limit prints every thread's stack
+    # to stderr once, so that a cut run shows where it waited
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
     dev = torch.device(DEVICE)
     torch.manual_seed(0)
     card = card_line()
@@ -6759,6 +7192,24 @@ def main() -> int:
               "k2": reshape_launches["fused_resolve"],
               "k3": reshape_launches["bloom_build"],
               "seconds": reshape["seconds"]})
+        # ---- 4m. the chaos harness's data-plane and CDC decks ----------
+        chaos, chaos_launches = chaos_dataplane(dev, work_dir, card)
+        emit({"phase": "chaos_dataplane", **chaos})
+        chaos_c, chaos_cdc_launches = chaos_cdc(dev, work_dir, card)
+        emit({"phase": "chaos_cdc", **chaos_c})
+        emit({"phase": "chaos_summary", "card": card, "decks": {
+            f"{p}.{k}": {f: d.get(f) for f in (
+                "schedules", "writes", "acked", "produced", "seconds",
+                "violations", "failpoint_trips", "remote_outcomes",
+                "bg_failures_retried", "card_raises_retried",
+                "card_raises_by_site", "k2", "k3")}
+            for p, r in (("chaos_dataplane", chaos), ("chaos_cdc", chaos_c))
+            for k, d in r["decks"].items()},
+            "k2": chaos_launches["fused_resolve"],
+            "k3": chaos_launches["bloom_build"],
+            "cdc_k2": chaos_cdc_launches["fused_resolve"],
+            "cdc_k3": chaos_cdc_launches["bloom_build"],
+            "seconds": [chaos["seconds"], chaos_c["seconds"]]})
         cost = instrumentation_cost()
         per_stream = stream["backends"]["fused"]["counters"]
         emit({"phase": "instrumented_seconds", "card": card,
@@ -6799,6 +7250,8 @@ def main() -> int:
         "cdc_network": cdc_net_launches,
         "cluster_failover": clus_launches,
         "cluster_reshape": reshape_launches,
+        "chaos_dataplane": chaos_launches,
+        "chaos_cdc": chaos_cdc_launches,
     }
     launches_by_path = {p: {k: c[k] for k in sources}
                         for p, c in launches_by_path.items()}

@@ -1,20 +1,55 @@
 #!/usr/bin/env python
-"""Seeded chaos harness, its coordinator-backed failover half: randomized
-control-plane fault schedules vs. the fourth and fifth standing
+"""Seeded chaos harness: randomized failpoint schedules vs. the standing
 invariants.
-(The port's copy of the failover half of ``tools/chaos_soak.py``:
-``--failover`` and its ``fencing`` tooth. The data-plane, reshard,
-rebalance and CDC decks come with later slices; see ``ROADMAP.md``.)
+(The port's copy of ``tools/chaos_soak.py``: the data-plane deck with its
+ingest and remote-compaction fixtures, ``--failover`` and ``--cdc``, and
+the ``wal_hole``, ``meta_first``, ``remote_install``, ``mux_misroute``,
+``fencing`` and ``cdc_dedup`` teeth. The reshard and rebalance decks
+(``--reshard``, ``--rebalance``) and their ``move_flip`` and
+``split_cutover`` teeth come with the next slice; see ``ROADMAP.md``.)
 
-The schedules run against a durable coordinator primary + replicated
-standby, a Controller, a Spectator publishing the shard map, and 3
-participant hosts running one replicas=3 semi-sync shard. Seeded
-schedules kill the acting leader while it holds a full AckWindow
-(heartbeats wedged, data plane alive — the classic deposed-but-running
-leader), expire participant sessions mid-write via the
-``coordinator.heartbeat`` seam, kill the coordinator primary,
-torn-write the coordinator WAL (``coordinator.wal.append``), and blip
-the ``participant.transition`` / ``controller.assign`` /
+Each schedule arms 1-3 deterministic failpoints (testing/failpoints.py)
+from a seeded menu — torn frames, stuck connects, failing fsyncs,
+mid-ingest faults — runs a semi-sync write workload against a 3-node
+replication cluster (leader + 2 followers over real TCP loopback, the
+test_replication Host shape) plus periodic SST bulk-ingests through the
+real AdminHandler path, clears the faults, waits for recovery, and
+checks the three standing invariants:
+
+1. **hole-free WAL prefix** on every node — seq ranges tile with no gap;
+2. **zero acked-write loss** — every write whose ack future resolved
+   ``acked`` is readable on the leader AND both followers once the
+   cluster reconverges;
+3. **ingest atomicity / no partial meta** — a fault anywhere in the
+   ingest pipeline leaves either no meta claim, or a meta claim with
+   every ingested key readable; a clean retry then always completes.
+
+Everything is derived from ``--seed``: the fault menu draws, the torn
+offsets and probability rolls (per-site seeded RNGs), the jittered
+retry backoffs (RSTPU_RETRY_SEED / RSTPU_PULL_RETRY_SEED). A violation
+prints the reproducing command line and exits 1.
+
+``--break-guard`` deliberately breaks a guard to prove the harness has
+teeth (the acceptance demo):
+
+- ``wal_hole``    — WalWriter.append claims a durability token for every
+  5th record without writing it (an ack-without-WAL bug): invariant 1
+  must catch the hole;
+- ``meta_first``  — the ingest handler writes DBMetaData BEFORE the
+  engine ingest (the crash-ordering bug the ingest seam exists to
+  prevent): invariant 3 must catch meta-without-data.
+
+With ``--expect-violation`` the run exits 0 iff a violation WAS caught.
+
+``--failover`` switches to the COORDINATOR-BACKED schedule menu: a
+durable coordinator primary + replicated standby, a Controller, a
+Spectator publishing the shard map, and 3 participant hosts running one
+replicas=3 semi-sync shard. Seeded schedules kill the acting leader
+while it holds a full AckWindow (heartbeats wedged, data plane alive —
+the classic deposed-but-running leader), expire participant sessions
+mid-write via the ``coordinator.heartbeat`` seam, kill the coordinator
+primary, torn-write the coordinator WAL (``coordinator.wal.append``),
+and blip the ``participant.transition`` / ``controller.assign`` /
 ``shardmap.publish`` / ``coordinator.reap`` seams. After EVERY schedule
 the harness holds the **fourth standing invariant**:
 
@@ -38,40 +73,703 @@ the harness holds the **fourth standing invariant**:
    without the new epoch on the request). Bounces are always legal;
    wrong serves never are.
 
-``--break-guard fencing`` deliberately breaks a guard to prove the
-harness has teeth: the leader IGNORES epochs
-(``ReplicatedDB._reject_stale_epoch`` patched to a no-op), and the
-stale-frame probes in the leader-crash schedule must catch it acking
-writes after deposition (SPLIT BRAIN). With ``--expect-violation`` the
-run exits 0 iff a violation WAS caught.
+``--cdc`` runs the CDC STREAMING INGEST deck (``cdc_burst``): an
+embedded broker feeds the exactly-once consumer (``kafka/ingestion.py``)
+applying into a 3-replica semi-sync group, while seeded schedules kill
+the consumer at every registered seam (``kafka.fetch`` /
+``kafka.apply`` / ``kafka.checkpoint``) mid-batch, run multi-kill
+bursts, and depose the leader mid-consume (the consumer restarted
+against the promoted follower resumes from ITS replicated watermark).
+After EVERY schedule the harness holds the **eighth standing
+invariant**:
 
-Every node's ``AdminHandler`` compacts on the card (``--device``,
-default ``cuda``); ``--device cpu`` runs the plain PyTorch path.
+8. **CDC exactly-once** — applied records == the produced prefix,
+   exactly once, per partition, on every replica of the serving
+   lineage: the durable watermark equals the produced count, the
+   applies-counter witness equals it too (record applies are idempotent
+   upserts, so a re-apply is INVISIBLE to state-compare — only the
+   counter riding the records batches can see a duplicate), and the
+   readable state equals the fold of the produced log (catching drops,
+   doubled deletes, and lost overwrites).
+
+- ``fencing`` (``--failover`` only) — the leader IGNORES epochs
+  (``ReplicatedDB._reject_stale_epoch`` patched to a no-op): the
+  stale-frame probes in the leader-crash schedule must catch it acking
+  writes after deposition (SPLIT BRAIN).
+- ``remote_install`` (data-plane only) — the leader installs a remote
+  compaction result without the epoch gate: the remote-compaction
+  fixture's deposition probe must catch a deposed leader's job
+  installing.
+- ``cdc_dedup`` (``--cdc`` only) — the at-least-once consumer a naive
+  port would ship: the offset checkpoint DECOUPLED from its apply batch
+  (records commit first, the watermark follows in a separate write). A
+  kill between the two leaves applied records above a stale watermark;
+  resume re-applies them. The re-apply is invisible to state-compare
+  (idempotent upserts) — the applies-counter witness must catch
+  ``applies_total > produced`` at quiesce.
+- ``mux_misroute`` (data-plane only; forces ``RSTPU_PULL_MUX=1``) — the
+  session-demux bug class: the mux serve files one shard's updates
+  under its sibling's section key, seqs restamped off the victim's
+  cursor (the index-off-by-one a mux serve loop can ship). The batch is
+  perfectly continuous, so the apply-side guard cannot reject it — the
+  zero-acked-loss / reconvergence invariants over BOTH chaos shards
+  must catch the cross-shard bleed.
+
+Every DB of every deck compacts on the card (``--device``, default
+``cuda``; without CUDA the run raises); ``--device cpu`` runs the plain
+PyTorch path. On the card a compaction whose direct sink fails under an
+injected fault raises where the CPU path would retry it on the tuple
+path; the engine's background loop records the failure and compacts
+again. The data-plane and CDC decks set the chaos scale (subcompaction
+slices of 256 entries, the streaming merge always on in 512-entry
+chunks) for their run only and restore the saved settings after it.
 
 Usage::
 
-    python -m rocksplicator_tpu_torch.tools.chaos_soak --schedules 15 \
-        --seed 1
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --schedules 20 \
+        --seed 1                                                # soak
     python -m rocksplicator_tpu_torch.tools.chaos_soak --break-guard \
-        fencing --expect-violation                              # tooth
+        wal_hole --expect-violation                             # teeth
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --failover \
+        --schedules 15 --seed 1
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --failover \
+        --break-guard fencing --expect-violation                # tooth
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --cdc \
+        --schedules 5 --seed 1
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --cdc \
+        --break-guard cdc_dedup --expect-violation              # tooth
+    RSTPU_PULL_MUX=1 python -m rocksplicator_tpu_torch.tools.chaos_soak \
+        --schedules 6                                           # mux deck
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --break-guard \
+        mux_misroute --expect-violation                         # tooth
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import contextlib
 import json
 import os
 import random
 import shutil
 import sys
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-from rocksplicator_tpu_torch.replication import ReplicationFlags, Replicator
-from rocksplicator_tpu_torch.storage import WriteBatch
+from rocksplicator_tpu_torch.device import resolve_device
+from rocksplicator_tpu_torch.replication import (
+    ReplicaRole,
+    ReplicationFlags,
+    Replicator,
+    StorageDbWrapper,
+)
+from rocksplicator_tpu_torch.storage import DB, DBOptions, WriteBatch
+from rocksplicator_tpu_torch.storage import wal as wal_mod
+from rocksplicator_tpu_torch.storage.records import OpType, scan_batch_meta
+from rocksplicator_tpu_torch.storage.sst import SSTWriter
 from rocksplicator_tpu_torch.testing import failpoints as fp
 from rocksplicator_tpu_torch.utils.objectstore import LocalObjectStore
+
+
+# ---------------------------------------------------------------------------
+# the data-plane deck: a semi-sync cluster, SST ingests, the remote tier
+# ---------------------------------------------------------------------------
+
+DB_NAME = "seg00001"
+# sibling shard on the same 3 hosts: with RSTPU_PULL_MUX=1
+# every follower's pull session to the leader carries BOTH shards'
+# sections, so session-level faults and the mux_misroute tooth exercise
+# real multi-shard demux — and the standing invariants cover
+# cross-shard bleed
+DB2_NAME = "seg00002"
+
+# quick-recovery flags: chaos wants many fault→heal cycles per minute,
+# not the reference's production 5-10s backoffs
+FLAGS = ReplicationFlags(
+    server_long_poll_ms=300,
+    pull_error_delay_min_ms=30,
+    pull_error_delay_max_ms=250,
+    ack_timeout_ms=800,
+    consecutive_timeouts_to_degrade=1000,
+    empty_pulls_before_reset=1 << 30,
+    write_window=32,
+)
+
+DB_OPTS = dict(
+    memtable_bytes=32 * 1024,  # continuous flush/compaction churn
+    background_compaction=True,
+    level0_compaction_trigger=3,
+)
+
+# Make key-range subcompactions REACHABLE at chaos scale: the
+# production threshold (32k entries per slice) would never slice the
+# tiny chaos memtables, leaving the compact.subcompact seam unarmed in
+# every schedule. Same for the streaming bounded-memory merge:
+# chaos-scale compactions are a few thousand entries, far under the auto
+# threshold, so force streaming as the default full-compaction path with
+# chunk windows small enough that every compaction crosses multiple
+# compact.stream.chunk/refill seams. A stream fault mid-chunk sweeps the
+# partial outputs and the engine falls back (or retries) — the
+# ingest-atomicity invariant rides every schedule.
+#
+# The three knobs are module-wide, so they are set for a deck's run only
+# (``_chaos_scale``) and restored after it, never at import: any later
+# user of the package in the same process compacts as it would have.
+CHAOS_MIN_SLICE_ENTRIES = 256
+CHAOS_STREAM_MODE = "always"
+CHAOS_CHUNK_ENTRIES = 512
+
+
+@contextlib.contextmanager
+def _chaos_scale():
+    """Set ``native_compaction.MIN_SLICE_ENTRIES``,
+    ``stream_merge.STREAM_MODE_OVERRIDE`` and ``CHUNK_ENTRIES_OVERRIDE``
+    to the chaos scale for the body, and restore the saved values after
+    it, whatever it raised."""
+    from rocksplicator_tpu_torch.storage import native_compaction as _nc
+    from rocksplicator_tpu_torch.storage import stream_merge as _sm
+
+    saved = (_nc.MIN_SLICE_ENTRIES, _sm.STREAM_MODE_OVERRIDE,
+             _sm.CHUNK_ENTRIES_OVERRIDE)
+    _nc.MIN_SLICE_ENTRIES = CHAOS_MIN_SLICE_ENTRIES
+    _sm.STREAM_MODE_OVERRIDE = CHAOS_STREAM_MODE
+    _sm.CHUNK_ENTRIES_OVERRIDE = CHAOS_CHUNK_ENTRIES
+    try:
+        yield
+    finally:
+        (_nc.MIN_SLICE_ENTRIES, _sm.STREAM_MODE_OVERRIDE,
+         _sm.CHUNK_ENTRIES_OVERRIDE) = saved
+
+
+def _backend(device):
+    """A fresh compaction backend on ``device`` (None means ``cuda``)."""
+    from rocksplicator_tpu_torch.gpu.backend import GpuCompactionBackend
+
+    return GpuCompactionBackend(device=device)
+
+
+def _fault_menu(rng: random.Random) -> List[Tuple[str, str]]:
+    """The schedule's candidate faults — every parameter drawn from the
+    schedule RNG, every probabilistic policy pinned to a drawn seed."""
+    s = rng.randrange(1 << 16)
+    return [
+        ("wal.fsync", f"delay_ms:{rng.randint(5, 40)}"),
+        ("wal.append", f"torn:{rng.uniform(0.02, 0.15):.3f}@seed{s}"),
+        ("sst.fsync", f"delay_ms:{rng.randint(5, 40)}"),
+        ("manifest.persist", f"fail_nth:{rng.randint(1, 4)}"),
+        ("manifest.persist", f"delay_ms:{rng.randint(5, 30)}"),
+        ("rpc.frame.send", f"torn:{rng.uniform(0.01, 0.08):.3f}@seed{s}"),
+        ("rpc.frame.send",
+         f"fail_prob:{rng.uniform(0.01, 0.08):.3f}@seed{s}"),
+        ("rpc.frame.recv",
+         f"fail_prob:{rng.uniform(0.005, 0.04):.3f}@seed{s}"),
+        ("rpc.connect", f"fail_first:{rng.randint(1, 3)}"),
+        ("rpc.connect",
+         f"delay_ms:{rng.randint(20, 120)}:{rng.uniform(0.1, 0.4):.2f}"
+         f"@seed{s}"),
+        ("repl.pull", f"fail_prob:{rng.uniform(0.02, 0.10):.3f}@seed{s}"),
+        ("repl.apply", f"fail_nth:{rng.randint(1, 3)}"),
+        ("ack.expire", f"delay_ms:{rng.randint(5, 50)}"),
+        # the workload-adaptive compaction scheduler's seams —
+        # the chaos DBs run background compaction with the scheduler
+        # active, so pick faults (loop retries), subcompaction slice
+        # faults (on the card: the compaction raises and the loop
+        # retries), and IO-budget yield delays all ride the standing
+        # data-plane invariants
+        ("compact.pick", f"fail_prob:{rng.uniform(0.05, 0.25):.3f}@seed{s}"),
+        ("compact.subcompact", f"fail_nth:{rng.randint(1, 3)}"),
+        ("compact.yield", f"delay_ms:{rng.randint(5, 30)}"),
+        # the streaming bounded-memory merge runs as the
+        # default full-compaction path at chaos scale (see
+        # ``_chaos_scale`` above) — kill it mid-chunk and
+        # mid-refill; outputs are swept, nothing installs, the
+        # invariants must hold
+        ("compact.stream.chunk", f"fail_nth:{rng.randint(1, 4)}"),
+        ("compact.stream.refill",
+         f"fail_prob:{rng.uniform(0.02, 0.15):.3f}@seed{s}"),
+        # the mux session seams — a serve fault fails the
+        # WHOLE multiplexed response (every section of the session
+        # retries together, the torn-session shape), an apply fault
+        # kills ONE section's client-side demux handoff. With
+        # RSTPU_PULL_MUX=1 the decks cross them on every pull round;
+        # with mux off they arm but the per-shard path never trips them
+        ("repl.mux.serve",
+         f"fail_prob:{rng.uniform(0.02, 0.10):.3f}@seed{s}"),
+        ("repl.mux.apply", f"fail_nth:{rng.randint(1, 3)}"),
+    ]
+
+
+_INGEST_FAULTS = [
+    None,
+    ("admin.ingest.engine", "fail_nth:1"),
+    ("admin.ingest.meta", "fail_nth:1"),
+    ("engine.ingest", "fail_nth:1"),
+    ("sst.ingest_footer", "fail_nth:1"),
+    ("objectstore.get", "fail_first:1"),  # absorbed by the batch retry
+    ("objectstore.get", "fail_first:6"),  # outlasts it — RPC must fail
+]
+
+
+class ChaosCluster:
+    """Leader + 2 followers over TCP loopback, semi-sync (mode 1), two
+    shards per host (DB_NAME + DB2_NAME) so muxed pull sessions carry
+    multiple sections. Every DB compacts on ``device`` (None means
+    ``cuda``)."""
+
+    def __init__(self, root: str, device=None):
+        self.root = root
+        self.hosts: List[Replicator] = [
+            Replicator(port=0, flags=FLAGS) for _ in range(3)]
+        self.dbs: List[DB] = []
+        self.dbs2: List[DB] = []
+        self.rdbs = []
+        self.rdbs2 = []
+        leader_addr = ("127.0.0.1", self.hosts[0].port)
+        for i, rep in enumerate(self.hosts):
+            role = ReplicaRole.LEADER if i == 0 else ReplicaRole.FOLLOWER
+            db = DB(os.path.join(root, f"n{i}", DB_NAME),
+                    DBOptions(**DB_OPTS,
+                              compaction_backend=_backend(device)))
+            self.dbs.append(db)
+            self.rdbs.append(rep.add_db(
+                DB_NAME, StorageDbWrapper(db), role,
+                upstream_addr=None if i == 0 else leader_addr,
+                replication_mode=1,
+            ))
+            db2 = DB(os.path.join(root, f"n{i}", DB2_NAME),
+                     DBOptions(**DB_OPTS,
+                               compaction_backend=_backend(device)))
+            self.dbs2.append(db2)
+            self.rdbs2.append(rep.add_db(
+                DB2_NAME, StorageDbWrapper(db2), role,
+                upstream_addr=None if i == 0 else leader_addr,
+                replication_mode=1,
+            ))
+
+    @property
+    def leader(self):
+        return self.rdbs[0]
+
+    @property
+    def leader2(self):
+        return self.rdbs2[0]
+
+    def converged(self) -> bool:
+        for group in (self.dbs, self.dbs2):
+            lat = group[0].latest_sequence_number_relaxed()
+            if any(db.latest_sequence_number_relaxed() != lat
+                   for db in group[1:]):
+                return False
+        return True
+
+    def wait_converged(self, timeout: float) -> bool:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.converged():
+                return True
+            time.sleep(0.05)
+        return self.converged()
+
+    def stop(self) -> None:
+        for rep in self.hosts:
+            rep.stop()
+        for db in self.dbs + self.dbs2:
+            db.close()
+
+
+def check_wal_contiguous(db: DB) -> Optional[str]:
+    """Invariant 1: the WAL's surviving records tile seq space with no
+    hole (purge only ever trims a fully-persisted prefix)."""
+    prev_end = None
+    for start_seq, raw in wal_mod.iter_updates(
+            os.path.join(db.path, "wal"), 0):
+        count, _ts = scan_batch_meta(raw)
+        if prev_end is not None and start_seq != prev_end + 1:
+            return (f"WAL hole: record at seq {start_seq} follows "
+                    f"seq {prev_end} (gap of {start_seq - prev_end - 1})")
+        prev_end = start_seq + count - 1
+    return None
+
+
+class IngestFixture:
+    """SST bulk-ingest through the real AdminHandler path, one fresh db
+    per step, with one ingest-class fault armed per step. The handler's
+    DBs compact on ``device`` (None means ``cuda``)."""
+
+    def __init__(self, root: str, replicator: Replicator, device=None):
+        from rocksplicator_tpu_torch.admin.handler import AdminHandler
+
+        self.bucket = os.path.join(root, "bucket")
+        self.store = LocalObjectStore(self.bucket)
+        self.handler = AdminHandler(
+            os.path.join(root, "admin"), replicator, device=device)
+        self.counter = 0
+
+    def step(self, rng: random.Random, violations: List[str],
+             tag: str) -> None:
+        self.counter += 1
+        db_name = f"ing{self.counter:05d}"
+        prefix = f"set{self.counter:05d}"
+        items = [
+            (b"k%05d" % j, b"v%05d" % (j % 997))
+            for j in range(rng.randint(40, 120))
+        ]
+        tmp_sst = os.path.join(self.bucket, "_mk.tsst")
+        w = SSTWriter(tmp_sst)
+        for k, v in items:
+            w.add(k, 0, OpType.PUT, v)
+        w.finish()
+        self.store.put_object(tmp_sst, f"{prefix}/bulk.tsst")
+        os.remove(tmp_sst)
+        asyncio.run(self.handler.handle_add_db(
+            db_name=db_name, role="NOOP"))
+        fault = rng.choice(_INGEST_FAULTS)
+        if fault is not None:
+            fp.activate(*fault)
+        ok, err = True, None
+        try:
+            asyncio.run(self.handler.handle_add_s3_sst_files_to_db(
+                db_name=db_name, s3_bucket=self.bucket, s3_path=prefix,
+                compact_db_after_load=rng.random() < 0.5))
+        except Exception as e:
+            ok, err = False, e
+        finally:
+            if fault is not None:
+                fp.deactivate(fault[0])
+        msg = self._check(db_name, prefix, items, must_claim=ok)
+        if msg:
+            violations.append(f"{tag}: ingest fault={fault}: {msg}")
+            return
+        if not ok:
+            # faults cleared: one clean retry must complete the load
+            try:
+                asyncio.run(self.handler.handle_add_s3_sst_files_to_db(
+                    db_name=db_name, s3_bucket=self.bucket,
+                    s3_path=prefix))
+            except Exception as e:
+                violations.append(
+                    f"{tag}: ingest retry after fault={fault} "
+                    f"(first error {err!r}) failed: {e!r}")
+                return
+            msg = self._check(db_name, prefix, items, must_claim=True)
+            if msg:
+                violations.append(
+                    f"{tag}: ingest fault={fault} post-retry: {msg}")
+
+    def _check(self, db_name: str, prefix: str, items,
+               must_claim: bool) -> Optional[str]:
+        """Invariant 3: meta claims the set ⇒ every key is readable
+        (never partial meta); a successful RPC ⇒ meta claims it."""
+        meta = self.handler.get_meta_data(db_name)
+        claims = (meta.s3_bucket == self.bucket
+                  and meta.s3_path == prefix)
+        if must_claim and not claims:
+            return "ingest RPC succeeded but meta does not claim the set"
+        if not claims:
+            return None  # fully pre-ingest (data may exist un-claimed)
+        app_db = self.handler.db_manager.get_db(db_name)
+        for k, v in items:
+            got = app_db.db.get(k)
+            if got != v:
+                return (f"meta claims {prefix} but key {k!r} reads "
+                        f"{got!r} (want {v!r}) — partial meta")
+        return None
+
+    def close(self) -> None:
+        self.handler.close()
+
+
+# seams the remote-compaction fixture arms one-at-a-time (registration
+# asserted by the registry pass like the ingest menu): leader-side
+# faults must fall back to the local merge; worker-side faults must
+# fail the job or look like a dead worker (reap → republish)
+_REMOTE_COMPACT_FAULTS = [
+    ("compact.remote.publish", "fail_nth:1"),
+    ("compact.remote.claim", "fail_nth:1"),
+    ("compact.remote.fetch", "fail_nth:1"),
+    ("compact.remote.upload", "fail_nth:1"),
+    ("compact.remote.install", "fail_nth:1"),
+    ("compact.remote.heartbeat", "fail_nth:1"),
+]
+
+
+class RemoteCompactionFixture:
+    """Disaggregated compaction tier under chaos: one fresh
+    db + leader-side manager per step, a persistent worker draining the
+    job ledger. Every step runs ONE rotating scenario (a seam fault, a
+    worker kill mid-job, or a leader kill mid-job) and then ALWAYS the
+    deposition probe: a job whose epoch goes stale in flight must come
+    back "fenced" with the file generation untouched — the invariant
+    the ``remote_install`` break-guard demonstrably violates. The worker
+    and the leaders' DBs compact on ``device`` (None means ``cuda``)."""
+
+    def __init__(self, root: str, device=None):
+        from rocksplicator_tpu_torch.cluster.coordinator import (
+            CoordinatorClient, CoordinatorServer)
+        from rocksplicator_tpu_torch.compaction_remote import (
+            CompactionWorker, RemoteDispatchPolicy)
+
+        self.root = root
+        self.device = device
+        self.server = CoordinatorServer(port=0, session_ttl=5.0)
+        self._clients = []
+
+        def client():
+            c = CoordinatorClient("127.0.0.1", self.server.port)
+            self._clients.append(c)
+            return c
+
+        self._client = client
+        self.store_uri = f"local://{os.path.join(root, 'compact_store')}"
+        self.policy = RemoteDispatchPolicy(
+            enabled=True, size_floor_bytes=0, deadline_s=20.0,
+            claim_wait_s=2.0, heartbeat_timeout_s=0.5)
+        self._worker_stop = threading.Event()
+        self.worker = CompactionWorker(
+            client(), os.path.join(root, "compact_wk"),
+            worker_id="chaos-worker", backend=_backend(device),
+            poll_interval=0.05)
+        threading.Thread(target=self.worker.serve_forever,
+                         args=(self._worker_stop,), daemon=True).start()
+        self.counter = 0  # fresh-db namer
+        self.steps = 0  # scenario rotation
+        self.outcomes: Dict[str, int] = {}
+
+    def _db_options(self) -> DBOptions:
+        return DBOptions(memtable_bytes=4 * 1024,
+                         level0_compaction_trigger=100,
+                         background_compaction=False,
+                         compaction_backend=_backend(self.device))
+
+    def _fresh_db(self, epoch_provider):
+        from rocksplicator_tpu_torch.compaction_remote import \
+            RemoteCompactionManager
+
+        self.counter += 1
+        name = f"rc{self.counter:05d}"
+        db = DB(os.path.join(self.root, "compact_dbs", name),
+                self._db_options())
+        for j in range(120):
+            db.write(WriteBatch().put(b"c%05d" % j, b"v%05d" % (j % 97)))
+            if j % 40 == 0:
+                db.flush()
+        for j in range(0, 120, 9):
+            db.write(WriteBatch().delete(b"c%05d" % j))
+        db.flush()
+        mgr = RemoteCompactionManager(
+            name, db, self._client(), self.store_uri,
+            policy=self.policy, epoch_provider=epoch_provider)
+        want = {b"c%05d" % j: db.get(b"c%05d" % j) for j in range(120)}
+        return name, db, mgr, want
+
+    class _Pick:
+        kind, level, score, reason = "l0", 0, 2.0, "chaos"
+
+    def _note(self, outcome: str) -> None:
+        self.outcomes[outcome] = self.outcomes.get(outcome, 0) + 1
+
+    def step(self, rng: random.Random, violations: List[str],
+             tag: str) -> None:
+        scenarios = ["clean", "worker_kill", "leader_kill"] + [
+            f"seam:{site}" for site, _ in _REMOTE_COMPACT_FAULTS]
+        scenario = scenarios[self.steps % len(scenarios)]
+        self.steps += 1
+        try:
+            self._run_scenario(scenario, rng, violations, tag)
+            # the standing probe, every step: a deposed leader's job
+            # must fence, and fencing must leave the generation alone
+            self._probe_deposition(violations, tag)
+        except Exception as e:
+            violations.append(
+                f"{tag}: remote-compaction fixture crashed "
+                f"({scenario}): {e!r}")
+
+    def _run_scenario(self, scenario: str, rng: random.Random,
+                      violations: List[str], tag: str) -> None:
+        name, db, mgr, want = self._fresh_db(lambda: 1)
+        fault = None
+        if scenario.startswith("seam:"):
+            fault = scenario.split(":", 1)[1]
+            fp.activate(fault, "fail_nth:1")
+        try:
+            if scenario == "worker_kill":
+                outcome = self._worker_kill(name, db, mgr)
+            elif scenario == "leader_kill":
+                outcome = self._leader_kill(name, db, mgr, want,
+                                            violations, tag)
+                self._note(f"{scenario}:{outcome}")
+                return  # db already reopened+closed inside
+            else:
+                outcome = mgr.maybe_offload(self._Pick())
+            self._note(f"{scenario}:{outcome}")
+            if outcome == "fenced":
+                violations.append(
+                    f"{tag}: remote {scenario}: unexpected fence at "
+                    f"stable epoch")
+                return
+            if outcome == "declined":
+                # the automatic local fallback must be intact
+                db.compact_range()
+            got = {k: db.get(k) for k in want}
+            if got != want:
+                bad = next(k for k in want if got[k] != want[k])
+                violations.append(
+                    f"{tag}: remote {scenario} ({outcome}): data "
+                    f"diverged at {bad!r}")
+                return
+            if fault:
+                # retry after clear: the tier must work again
+                fp.deactivate(fault)
+                fault = None
+                retry = mgr.maybe_offload(self._Pick())
+                if retry not in ("installed", "declined"):
+                    violations.append(
+                        f"{tag}: remote {scenario}: retry after clear "
+                        f"→ {retry}")
+                got = {k: db.get(k) for k in want}
+                if got != want:
+                    violations.append(
+                        f"{tag}: remote {scenario}: data diverged "
+                        f"after clean retry")
+        finally:
+            if fault:
+                fp.deactivate(fault)
+            db.close()
+
+    def _worker_kill(self, name: str, db, mgr) -> str:
+        """A claimer that dies instantly: claims the job the moment it
+        appears, never heartbeats, never merges. The leader must reap
+        on heartbeat expiry and the live worker must finish the job."""
+        from rocksplicator_tpu_torch.compaction_remote import \
+            CompactionJobQueue
+
+        dead_q = CompactionJobQueue(self._client())
+        stop = threading.Event()
+
+        def dead_claimer():
+            while not stop.is_set():
+                try:
+                    open_dbs = dead_q.list_open_jobs()
+                    if name in open_dbs:
+                        dead_q.claim(name, "dead-chaos-worker")
+                        return
+                except Exception:
+                    pass
+                time.sleep(0.01)
+
+        t = threading.Thread(target=dead_claimer, daemon=True)
+        t.start()
+        try:
+            return mgr.maybe_offload(self._Pick())
+        finally:
+            stop.set()
+            t.join(timeout=2.0)
+
+    def _leader_kill(self, name: str, db, mgr, want,
+                     violations: List[str], tag: str) -> str:
+        """Leader killed between publish and install: reopen must be
+        exactly pre-compaction, recover() sweeps the orphan, and the
+        next pick completes clean."""
+        files_before = sorted(
+            n for level in db._levels for n in level)
+        plan = db.plan_full_compaction()
+        if plan is None:
+            db.close()
+            return "noplan"
+        mgr._publish(plan, f"chaoskill{self.counter:05d}", 1)
+        db.abort_full_compaction(plan)  # the crash drops the mutex
+        db.close()
+
+        db2 = DB(db.path, self._db_options())
+        try:
+            files_after = sorted(
+                n for level in db2._levels for n in level)
+            if files_after != files_before:
+                violations.append(
+                    f"{tag}: remote leader_kill: reopen NOT exactly "
+                    f"pre-compaction ({files_before} → {files_after})")
+                return "diverged"
+            got = {k: db2.get(k) for k in want}
+            if got != want:
+                violations.append(
+                    f"{tag}: remote leader_kill: reopened data "
+                    f"diverged")
+                return "diverged"
+            mgr._db = db2
+            mgr.recover()
+            if mgr._queue.get_job(name) is not None:
+                violations.append(
+                    f"{tag}: remote leader_kill: recover() left the "
+                    f"orphan job in the ledger")
+                return "orphan"
+            outcome = mgr.maybe_offload(self._Pick())
+            if outcome == "declined":
+                db2.compact_range()
+            got = {k: db2.get(k) for k in want}
+            if got != want:
+                violations.append(
+                    f"{tag}: remote leader_kill: post-recovery "
+                    f"compaction diverged")
+            return outcome
+        finally:
+            db2.close()
+
+    def _probe_deposition(self, violations: List[str], tag: str) -> None:
+        """Publish at epoch 1, mint epoch 2 mid-job: the install MUST
+        fence, and the file generation must be byte-for-byte untouched.
+        With --break-guard remote_install the epoch gate is patched
+        out, the stale job installs, and THIS probe is what catches
+        it. A transient "declined" (worker hiccup: the result never
+        arrived, so there was nothing to fence) is retried once before
+        judging."""
+        for attempt in (0, 1):
+            epoch = {"cur": 1}
+            name, db, mgr, want = self._fresh_db(lambda: epoch["cur"])
+            files_before = sorted(
+                n for level in db._levels for n in level)
+            orig_publish = mgr._queue.publish
+
+            def publish_then_depose(job, _pub=orig_publish):
+                _pub(job)
+                epoch["cur"] = 2  # a new leader was elected mid-job
+
+            mgr._queue.publish = publish_then_depose
+            try:
+                outcome = mgr.maybe_offload(self._Pick())
+                self._note(f"deposed:{outcome}")
+                files_after = sorted(
+                    n for level in db._levels for n in level)
+                if outcome == "installed" or (
+                        outcome == "fenced"
+                        and files_after != files_before):
+                    violations.append(
+                        f"{tag}: DEPOSED LEADER'S JOB INSTALLED: "
+                        f"stale-epoch result came back {outcome!r}, "
+                        f"generation {files_before} → {files_after} "
+                        f"(epoch gate broken?)")
+                    return
+                if outcome == "fenced":
+                    return  # the expected path: discarded, untouched
+                # declined = the result never arrived to be fenced
+                # (worker hiccup) — inconclusive, retry once
+            finally:
+                db.close()
+        violations.append(
+            f"{tag}: deposition probe inconclusive twice: no result "
+            f"ever reached the epoch gate (worker wedged?)")
+
+    def close(self) -> None:
+        self._worker_stop.set()
+        for c in self._clients:
+            try:
+                c.close()
+            except Exception:
+                pass
+        self.server.stop()
+
 
 # ---------------------------------------------------------------------------
 # coordinator-backed failover chaos (the control-plane schedule menu)
@@ -367,9 +1065,111 @@ class FailoverCluster:
 # ---------------------------------------------------------------------------
 
 
-
 def _break_guard(kind: str):
     """Returns an undo callable."""
+    if kind == "wal_hole":
+        from rocksplicator_tpu_torch.storage.wal import WalWriter
+
+        orig = WalWriter.append
+        state = {"n": 0}
+
+        def broken_append(self, start_seq, batch_bytes):
+            state["n"] += 1
+            if state["n"] % 5 == 0:
+                # claim a durability token without writing the record —
+                # the ack-before-durability bug class
+                self._append_token += 1
+                return self._append_token
+            return orig(self, start_seq, batch_bytes)
+
+        WalWriter.append = broken_append
+        return lambda: setattr(WalWriter, "append", orig)
+    if kind == "meta_first":
+        from rocksplicator_tpu_torch.admin.handler import AdminHandler
+
+        orig_do = AdminHandler._do_ingest
+
+        def broken_do(self, sp, db_name, store, s3_bucket, s3_path,
+                      *args):
+            self.write_meta_data(db_name, s3_bucket, s3_path)
+            return orig_do(self, sp, db_name, store, s3_bucket, s3_path,
+                           *args)
+
+        AdminHandler._do_ingest = broken_do
+        return lambda: setattr(AdminHandler, "_do_ingest", orig_do)
+    if kind == "remote_install":
+        # a leader that installs a remote compaction result WITHOUT the
+        # epoch gate: a deposed leader's in-flight job comes back and
+        # swaps a generation into a db that a higher-epoch leader now
+        # owns. The remote-compaction fixture's standing deposition
+        # probe must catch the install that should have fenced.
+        from rocksplicator_tpu_torch.compaction_remote import \
+            install as rc_install
+
+        orig_gate = rc_install._epoch_is_current
+        rc_install._epoch_is_current = \
+            lambda job_epoch, current_epoch: True
+        return lambda: setattr(
+            rc_install, "_epoch_is_current", orig_gate)
+    if kind == "mux_misroute":
+        # the session-demux bug class: the server drains the
+        # right WALs but files one shard's updates under its SIBLING's
+        # section key — cursor bookkeeping intact, seqs restamped off
+        # the victim's cursor, which is exactly what an index-off-by-one
+        # in the serve loop produces. The apply side sees a perfectly
+        # CONTINUOUS batch of the wrong shard's bytes, so the
+        # seq-continuity guard cannot reject it — only the standing
+        # invariants can catch it: acked writes on the donor shard never
+        # reach the followers (zero-acked-loss), and the victim shard
+        # runs ahead of its leader (reconvergence never lands). Forces
+        # RSTPU_PULL_MUX=1 for the run — the tooth targets the mux path.
+        from rocksplicator_tpu_torch.replication.pull_mux import \
+            MuxServerState
+
+        saved_mux = os.environ.get("RSTPU_PULL_MUX")
+        os.environ["RSTPU_PULL_MUX"] = "1"
+        orig_serve = MuxServerState.serve
+        state = {"n": 0}
+
+        def _restamp(updates, start):
+            out, seq = [], start
+            for u in updates:
+                u2 = dict(u)
+                u2["seq_no"] = seq
+                seq += int(u.get("count") or 1)
+                out.append(u2)
+            return out
+
+        async def misrouting_serve(self, db_map, sections,
+                                   max_wait_ms=None, budget=None):
+            resp = await orig_serve(self, db_map, sections,
+                                    max_wait_ms=max_wait_ms,
+                                    budget=budget)
+            out = resp.get("sections") or {}
+            live = sorted(n for n, sec in out.items()
+                          if isinstance(sec, dict) and "error" not in sec)
+            state["n"] += 1
+            if len(live) >= 2 and state["n"] % 2 == 0:
+                a, b = live[0], live[1]
+                ua = out[a].get("updates") or []
+                ub = out[b].get("updates") or []
+                if ua or ub:
+                    out[a]["updates"] = _restamp(
+                        ub, int(sections[a].get("seq_no", 0)) + 1)
+                    out[b]["updates"] = _restamp(
+                        ua, int(sections[b].get("seq_no", 0)) + 1)
+            return resp
+
+        MuxServerState.serve = misrouting_serve
+
+        def undo():
+            MuxServerState.serve = orig_serve
+            if saved_mux is None:
+                os.environ.pop("RSTPU_PULL_MUX", None)
+            else:
+                os.environ["RSTPU_PULL_MUX"] = saved_mux
+
+        return undo
     if kind == "fencing":
         # a leader that IGNORES epochs: stale-epoch frames are served and
         # acked, a deposed leader never fences — the no-split-brain
@@ -382,8 +1182,54 @@ def _break_guard(kind: str):
             lambda self, remote_epoch: False)
         return lambda: setattr(
             ReplicatedDB, "_reject_stale_epoch", orig_reject)
-    raise ValueError(f"unknown break-guard: {kind}")
+    if kind == "cdc_dedup":
+        # the at-least-once bug class: the consumer-offset checkpoint
+        # DECOUPLED from the apply batch — records commit first, the
+        # watermark follows in a separate write (what a naive port of
+        # the reference's commit()-after-apply would do). The
+        # kafka.checkpoint seam moves with it: it now fires BETWEEN the
+        # records commit and the watermark write, so a seam kill leaves
+        # applied records above a stale watermark; resume re-applies
+        # them. State-compare can't see it (applies are idempotent
+        # upserts) — the applies-counter witness must catch
+        # ``applies_total > watermark.offset`` at quiesce.
+        from rocksplicator_tpu_torch.kafka.checkpoint import (
+            encode_watermark, watermark_key)
+        from rocksplicator_tpu_torch.kafka.ingestion import \
+            IngestionWatcher
+        from rocksplicator_tpu_torch.storage.records import (
+            WriteBatch as _WriteBatch)
 
+        orig_fold = IngestionWatcher._fold_checkpoint
+        orig_apply = IngestionWatcher._apply_group
+
+        def naive_fold(self, batch, partition, next_offset, applied,
+                       ts_ms):
+            pending = getattr(self, "_naive_pending", None)
+            if pending is None:
+                pending = self._naive_pending = []
+            pending.append((partition, next_offset, applied, ts_ms))
+
+        def naive_apply(self, batches):
+            orig_apply(self, batches)
+            pending, self._naive_pending = \
+                getattr(self, "_naive_pending", []) or [], []
+            for p, off, applied, ts in pending:
+                fp.hit("kafka.checkpoint")
+                wb = _WriteBatch()
+                wb.put(watermark_key(self._topic, p),
+                       encode_watermark(off, applied, ts))
+                self._write_many([wb])
+
+        IngestionWatcher._fold_checkpoint = naive_fold
+        IngestionWatcher._apply_group = naive_apply
+
+        def undo():
+            IngestionWatcher._fold_checkpoint = orig_fold
+            IngestionWatcher._apply_group = orig_apply
+
+        return undo
+    raise ValueError(f"unknown break-guard: {kind}")
 
 
 # ---------------------------------------------------------------------------
@@ -1095,41 +1941,618 @@ def run_failover_chaos(
     }
 
 
+# ---------------------------------------------------------------------------
+# the CDC deck (cdc_burst): the exactly-once consumer under kills
+# ---------------------------------------------------------------------------
+
+CDC_TOPIC = "cdc_events"
+
+# the deck rotates one scenario per schedule; kills land at every
+# consumer seam mid-batch, plus a multi-kill burst and a leader
+# failover mid-consume. Order matters for the tooth: schedule 0 is the
+# checkpoint seam, where the cdc_dedup break-guard must be caught.
+_CDC_DECK = [
+    "seam:kafka.checkpoint",
+    "seam:kafka.apply",
+    "seam:kafka.fetch",
+    "burst",
+    "leader_failover",
+]
+
+
+class _CdcApplyTarget:
+    """ApplicationDB-shaped shim over a ReplicatedDB: ``.db`` exposes
+    the local engine (watermark reads, pacing gauges), ``write_many``
+    routes each batch through semi-sync replication — the watermark PUT
+    replicates with the records it covers, and fencing surfaces as a
+    write error exactly as on the serving stack."""
+
+    def __init__(self, engine: DB, rdb):
+        self.db = engine
+        self._rdb = rdb
+
+    def write_many(self, batches):
+        for b in batches:
+            self._rdb.write(b)
+
+
+def _cdc_deck_msgs(n: int) -> Tuple[List[Tuple[bytes, bytes]], Dict]:
+    """Deterministic produce history with overwrites and deletes: the
+    expected final state is the FOLD of the log, so a dropped or
+    doubled delete would surface even without the applies witness."""
+    msgs: List[Tuple[bytes, bytes]] = []
+    expect: Dict[bytes, bytes] = {}
+    for i in range(n):
+        key = b"c%03d" % (i % 120)
+        value = b"" if (i % 29 == 7) else b"v%d" % i
+        msgs.append((key, value))
+        if value:
+            expect[key] = value
+        else:
+            expect.pop(key, None)
+    return msgs, expect
+
+
+def _cdc_produce_bg(kafka, msgs, base_ts: int, pace_sec: float):
+    done = threading.Event()
+
+    def run():
+        for i, (k, v) in enumerate(msgs):
+            kafka.produce(CDC_TOPIC, 0, k, v, timestamp_ms=base_ts + i)
+            if pace_sec:
+                time.sleep(pace_sec)
+        done.set()
+
+    t = threading.Thread(target=run, name="cdc-producer", daemon=True)
+    t.start()
+    return t, done
+
+
+def _check_cdc_invariant(tag: str, kafka, engines: List[DB], expect,
+                         violations: List[str]) -> None:
+    """Invariant 8: applied records == produced prefix, EXACTLY once,
+    per partition — on every replica of the serving lineage. The
+    watermark names the prefix; the applies counter is the duplicate
+    witness (idempotent upserts make state-compare blind to re-applies,
+    the counter is not); the fold check catches drops."""
+    from rocksplicator_tpu_torch.kafka.checkpoint import (read_applies,
+                                                          read_watermark)
+
+    produced = kafka.high_watermark(CDC_TOPIC, 0)
+    for i, engine in enumerate(engines):
+        wm = read_watermark(engine, CDC_TOPIC, 0)
+        off = None if wm is None else wm["offset"]
+        if off != produced:
+            violations.append(
+                f"{tag}: replica {i}: watermark {off} != produced "
+                f"{produced} — the applied prefix is not the produced "
+                f"prefix")
+            continue
+        applies = read_applies(engine, CDC_TOPIC, 0)
+        if applies != produced:
+            violations.append(
+                f"{tag}: replica {i}: applies_total {applies} != "
+                f"produced {produced} — records were NOT applied "
+                f"exactly once (duplicate applies survive state-compare; "
+                f"the counter witness does not)")
+        for k, v in expect.items():
+            got = engine.get(k)
+            if got != v:
+                violations.append(
+                    f"{tag}: replica {i}: fold mismatch at {k!r}: "
+                    f"read {got!r}, want {v!r}")
+                break
+
+
+def _run_cdc_schedule(root: str, si: int, rng: random.Random,
+                      scenario: str, violations: List[str],
+                      counters: Dict, heal_timeout: float,
+                      device=None) -> None:
+    from rocksplicator_tpu_torch.kafka.broker import (MockConsumer,
+                                                      MockKafkaCluster)
+    from rocksplicator_tpu_torch.kafka.ingestion import IngestionWatcher
+
+    kafka = MockKafkaCluster()
+    kafka.create_topic(CDC_TOPIC, 1)
+    n = rng.randint(150, 300)
+    msgs, expect = _cdc_deck_msgs(n)
+    counters["produced"] += n
+    cluster = ChaosCluster(os.path.join(root, f"cdc{si}"), device=device)
+    tag = f"cdc schedule {si} [{scenario}]"
+    watchers = []
+
+    def start_watcher(node_idx: int, rdb) -> "IngestionWatcher":
+        w = IngestionWatcher(
+            None, DB_NAME,
+            _CdcApplyTarget(cluster.dbs[node_idx], rdb),
+            MockConsumer(kafka), CDC_TOPIC, [0], 0)
+        w.start()
+        watchers.append(w)
+        counters["consumer_starts"] += 1
+        return w
+
+    def wait(pred, timeout=20.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if pred():
+                return True
+            time.sleep(0.02)
+        return pred()
+
+    try:
+        if not cluster.wait_converged(20.0):
+            raise RuntimeError(f"{tag}: cluster never converged at start")
+        producer, prod_done = _cdc_produce_bg(
+            kafka, msgs, base_ts=1_000 + si, pace_sec=0.002)
+        engines: List[DB] = list(cluster.dbs)
+        if scenario.startswith("seam:"):
+            site = scenario[len("seam:"):]
+            fp.activate(site, f"fail_nth:{rng.randint(2, 6)}")
+            w = start_watcher(0, cluster.leader)
+            died = wait(lambda: w.error is not None
+                        or (prod_done.is_set() and w.watermark(0) == n))
+            fp.deactivate(site)
+            if w.error is not None:
+                counters["kills"] += 1
+            elif not died:
+                violations.append(
+                    f"{tag}: consumer neither died nor finished")
+            w.stop()
+            w2 = start_watcher(0, cluster.leader)
+            if not wait(lambda: w2.watermark(0) == n):
+                violations.append(
+                    f"{tag}: resumed consumer stalled at watermark "
+                    f"{w2.watermark(0)}/{n} (error {w2.error!r})")
+            w2.stop()
+        elif scenario == "burst":
+            # kill/restart at a random seam, repeatedly, racing the
+            # producer — then one clean pass to quiesce
+            for _cycle in range(3):
+                site = rng.choice(["kafka.fetch", "kafka.apply",
+                                   "kafka.checkpoint"])
+                fp.activate(site, f"fail_nth:{rng.randint(1, 4)}")
+                w = start_watcher(0, cluster.leader)
+                if wait(lambda: w.error is not None
+                        or (prod_done.is_set()
+                            and w.watermark(0) == n), timeout=10.0) \
+                        and w.error is not None:
+                    counters["kills"] += 1
+                fp.deactivate(site)
+                w.stop()
+            w = start_watcher(0, cluster.leader)
+            if not wait(lambda: w.watermark(0) == n):
+                violations.append(
+                    f"{tag}: post-burst consumer stalled at "
+                    f"{w.watermark(0)}/{n} (error {w.error!r})")
+            w.stop()
+        elif scenario == "leader_failover":
+            old_leader = cluster.leader
+            w = start_watcher(0, old_leader)
+            wait(lambda: w.watermark(0) >= n // 3)
+            # the controller's promotion at the data plane: follower 1
+            # takes epoch 2; follower 2's next pull (still aimed at the
+            # old leader) fences the deposed lineage — the consumer's
+            # next replicated write dies loudly
+            cluster.hosts[1].remove_db(DB_NAME)
+            new_leader = cluster.hosts[1].add_db(
+                DB_NAME, StorageDbWrapper(cluster.dbs[1]),
+                ReplicaRole.LEADER, replication_mode=1, epoch=2)
+            cluster.rdbs[1] = new_leader
+            cluster.rdbs[2].adopt_epoch(2)
+            if not wait(lambda: old_leader.fenced, timeout=10.0):
+                violations.append(f"{tag}: deposed leader never fenced")
+            if not wait(lambda: w.error is not None, timeout=15.0):
+                violations.append(
+                    f"{tag}: consumer survived its leader's deposition")
+            counters["kills"] += 1
+            w.stop()
+            cluster.rdbs[2].reset_upstream(
+                ("127.0.0.1", cluster.hosts[1].port))
+            prod_done.wait(20.0)
+            # resume against the promoted follower: its own replicated
+            # watermark names the resume point
+            w2 = start_watcher(1, new_leader)
+            if not wait(lambda: w2.watermark(0) == n):
+                violations.append(
+                    f"{tag}: post-failover consumer stalled at "
+                    f"{w2.watermark(0)}/{n} (error {w2.error!r})")
+            w2.stop()
+            engines = [cluster.dbs[1], cluster.dbs[2]]
+        else:
+            raise ValueError(f"unknown cdc scenario: {scenario}")
+        producer.join(20.0)
+        # quiesce: the serving lineage reconverges, then invariant 8
+        # holds on EVERY replica of it (watermark + counter rode the
+        # replicated batches)
+        lead = engines[0]
+        if not wait(lambda: all(
+                e.latest_sequence_number_relaxed()
+                == lead.latest_sequence_number_relaxed()
+                for e in engines), timeout=heal_timeout):
+            violations.append(
+                f"{tag}: lineage did not reconverge in {heal_timeout}s")
+        _check_cdc_invariant(tag, kafka, engines, expect, violations)
+    finally:
+        fp.clear()
+        for w in watchers:
+            try:
+                w.stop()
+            except Exception:
+                pass
+        cluster.stop()
+
+
+def run_cdc_chaos(
+    root: str,
+    schedules: int = 5,
+    seed: int = 1,
+    break_guard: Optional[str] = None,
+    heal_timeout: float = 15.0,
+    log=print,
+    device=None,
+) -> Dict:
+    """The ``cdc_burst`` chaos mode: kill/restart the CDC consumer at
+    every seam mid-batch (plus a multi-kill burst and a leader failover
+    mid-consume), asserting invariant 8 after every schedule. The
+    three-replica group compacts on ``device`` (None means ``cuda``;
+    raises without CUDA) at the chaos scale (``_chaos_scale``)."""
+    resolve_device(device)
+    with _chaos_scale():
+        return _run_cdc_deck(root, schedules, seed, break_guard,
+                             heal_timeout, log, device)
+
+
+def _run_cdc_deck(root, schedules, seed, break_guard, heal_timeout, log,
+                  device) -> Dict:
+    from rocksplicator_tpu_torch.kafka import ingestion as ingestion_mod
+
+    saved_shape = (ingestion_mod.MAX_DRAIN, ingestion_mod.BATCH_RECORDS,
+                   ingestion_mod.POLL_SEC)
+    # chaos scale: small drains/batches so every schedule crosses many
+    # batch boundaries (a kill always has partial progress to tear)
+    ingestion_mod.MAX_DRAIN = 48
+    ingestion_mod.BATCH_RECORDS = 16
+    ingestion_mod.POLL_SEC = 0.05
+    undo = _break_guard(break_guard) if break_guard else None
+    violations: List[str] = []
+    counters: Dict = {"kills": 0, "consumer_starts": 0, "produced": 0}
+    scenarios: List[str] = []
+    fp.clear()
+    try:
+        for si in range(schedules):
+            rng = random.Random(seed * 1_000_003 + si)
+            scenario = _CDC_DECK[si % len(_CDC_DECK)]
+            scenarios.append(scenario)
+            _run_cdc_schedule(root, si, rng, scenario, violations,
+                              counters, heal_timeout, device=device)
+            log(f"  [{si + 1}/{schedules}] {scenario} "
+                f"kills={counters['kills']} "
+                f"starts={counters['consumer_starts']} "
+                f"violations={len(violations)}")
+            if violations and break_guard:
+                break
+    finally:
+        fp.clear()
+        if undo:
+            undo()
+        (ingestion_mod.MAX_DRAIN, ingestion_mod.BATCH_RECORDS,
+         ingestion_mod.POLL_SEC) = saved_shape
+    return {
+        "schedules": schedules,
+        "seed": seed,
+        "scenarios": scenarios,
+        "produced": counters["produced"],
+        "kills": counters["kills"],
+        "consumer_starts": counters["consumer_starts"],
+        "violations": violations,
+        "failpoint_trips": fp.trip_counts(),
+        "break_guard": break_guard,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the data-plane deck's driver
+# ---------------------------------------------------------------------------
+
+
+def run_chaos(
+    root: str,
+    schedules: int = 20,
+    seed: int = 1,
+    writes: int = 80,
+    ingest_every: int = 4,
+    remote_every: int = 3,
+    break_guard: Optional[str] = None,
+    conv_timeout: float = 30.0,
+    transport: Optional[str] = None,
+    log=print,
+    device=None,
+) -> Dict:
+    """The data-plane deck: seeded fault schedules against
+    ``ChaosCluster`` with periodic SST ingests (``IngestFixture``) and
+    remote-compaction scenarios (``RemoteCompactionFixture``), holding
+    invariants 1-3 after every schedule. Every DB, the ingest handler
+    and the remote worker compact on ``device`` (None means ``cuda``;
+    raises without CUDA) at the chaos scale (``_chaos_scale``, restored
+    on return or raise)."""
+    resolve_device(device)
+    with _chaos_scale():
+        return _run_data_plane(root, schedules, seed, writes, ingest_every,
+                               remote_every, break_guard, conv_timeout,
+                               transport, log, device)
+
+
+def _run_data_plane(root, schedules, seed, writes, ingest_every,
+                    remote_every, break_guard, conv_timeout, transport,
+                    log, device) -> Dict:
+    saved_env = {
+        k: os.environ.get(k)
+        for k in ("RSTPU_RETRY_SEED", "RSTPU_PULL_RETRY_SEED",
+                  "RSTPU_TRANSPORT")
+    }
+    os.environ["RSTPU_RETRY_SEED"] = str(seed)
+    os.environ["RSTPU_PULL_RETRY_SEED"] = str(seed)
+    if transport:
+        # the same seeded schedules must hold the same invariants on
+        # every byte layer: the policy reroutes the cluster's RPC plane
+        # (leader/followers are colocated in-process, so even loopback
+        # applies) while the fault sites arm identically
+        os.environ["RSTPU_TRANSPORT"] = transport
+    undo = _break_guard(break_guard) if break_guard else None
+    violations: List[str] = []
+    gauge_snapshots: List[Dict] = []
+    acked_total = 0
+    write_total = 0
+    fp.clear()
+    cluster = ingest = remote = None
+    try:
+        cluster = ChaosCluster(root, device=device)
+        ingest = IngestFixture(root, cluster.hosts[0], device=device)
+        remote = (RemoteCompactionFixture(root, device=device)
+                  if remote_every else None)
+        if not cluster.wait_converged(20.0):
+            raise RuntimeError("cluster never converged at start")
+        for si in range(schedules):
+            rng = random.Random(seed * 1_000_003 + si)
+            faults = rng.sample(_fault_menu(rng), k=rng.randint(1, 3))
+            tag = f"schedule {si}/seed {seed}"
+            for site, spec in faults:
+                fp.activate(site, spec)
+            # -- workload under fault -------------------------------------
+            waiters = []
+            n_writes = rng.randint(writes // 2, writes)
+            write_errors = 0
+            for i in range(n_writes):
+                key = b"s%03dk%04d" % (si, i)
+                val = b"s%03dv%04d" % (si, i)
+                try:
+                    waiters.append(
+                        (key, val,
+                         cluster.leader.write_async(
+                             WriteBatch().put(key, val))))
+                except Exception:
+                    write_errors += 1  # injected fault; write not acked
+            # sibling-shard load: smaller but concurrent, so with mux on
+            # the session interleaves both shards' backlogs in one
+            # response stream under the same armed faults
+            waiters2 = []
+            n_writes2 = rng.randint(6, 14)
+            for i in range(n_writes2):
+                key = b"x%03dk%04d" % (si, i)
+                val = b"x%03dv%04d" % (si, i)
+                try:
+                    waiters2.append(
+                        (key, val,
+                         cluster.leader2.write_async(
+                             WriteBatch().put(key, val))))
+                except Exception:
+                    write_errors += 1
+            write_total += n_writes + n_writes2
+            acked: List[Tuple[bytes, bytes]] = []
+            for key, val, w in waiters:
+                try:
+                    w.future.result(5.0)
+                except Exception:
+                    continue
+                if w.acked:
+                    acked.append((key, val))
+            acked2: List[Tuple[bytes, bytes]] = []
+            for key, val, w in waiters2:
+                try:
+                    w.future.result(5.0)
+                except Exception:
+                    continue
+                if w.acked:
+                    acked2.append((key, val))
+            acked_total += len(acked) + len(acked2)
+            # -- heal + verify --------------------------------------------
+            for site, _spec in faults:
+                fp.deactivate(site)
+            if not cluster.wait_converged(conv_timeout):
+                lat = [db.latest_sequence_number_relaxed()
+                       for db in cluster.dbs]
+                violations.append(
+                    f"{tag}: no reconvergence {conv_timeout}s after "
+                    f"faults cleared (seqs {lat}, faults {faults})")
+            for i, db in enumerate(cluster.dbs + cluster.dbs2):
+                msg = check_wal_contiguous(db)
+                if msg:
+                    violations.append(
+                        f"{tag}: node {i % 3} "
+                        f"({DB_NAME if i < 3 else DB2_NAME}): {msg} "
+                        f"(faults {faults})")
+            lost = []
+            for key, val in acked:
+                for i, db in enumerate(cluster.dbs):
+                    if db.get(key) != val:
+                        lost.append((i, key))
+            for key, val in acked2:
+                for i, db in enumerate(cluster.dbs2):
+                    if db.get(key) != val:
+                        lost.append((i, key))
+            if lost:
+                violations.append(
+                    f"{tag}: {len(lost)} acked writes missing after "
+                    f"reconvergence, first {lost[0]} (faults {faults})")
+            if ingest_every and si % ingest_every == ingest_every - 1:
+                ingest.step(rng, violations, tag)
+            if remote is not None and si % remote_every == 0:
+                # disaggregated compaction tier: rotating
+                # seam/worker-kill/leader-kill scenario + the standing
+                # deposed-install probe — runs on si=0 so a broken
+                # remote_install guard is caught on the first schedule
+                remote.step(rng, violations, tag)
+            gauge_snapshots.append(_gauge_snapshot(tag))
+            log(f"  [{si + 1}/{schedules}] faults={faults} "
+                f"writes={n_writes + n_writes2} "
+                f"acked={len(acked) + len(acked2)} "
+                f"errors={write_errors} "
+                f"violations={len(violations)}")
+            if violations and break_guard:
+                break  # teeth demonstrated; no need to keep going
+    finally:
+        fp.clear()
+        if undo:
+            undo()
+        if ingest is not None:
+            ingest.close()
+        if remote is not None:
+            remote.close()
+        if cluster is not None:
+            cluster.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {
+        "schedules": schedules,
+        "seed": seed,
+        "transport": transport or os.environ.get("RSTPU_TRANSPORT", "tcp")
+        or "tcp",
+        "writes": write_total,
+        "acked": acked_total,
+        "violations": violations,
+        "gauge_snapshots": gauge_snapshots,
+        "failpoint_trips": fp.trip_counts(),
+        "break_guard": break_guard,
+        "remote_outcomes": dict(remote.outcomes) if remote else {},
+    }
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--schedules", type=int, default=15)
+    ap.add_argument("--schedules", type=int, default=20)
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--break-guard", choices=["fencing"])
+    ap.add_argument("--writes", type=int, default=80,
+                    help="max writes per schedule")
+    ap.add_argument("--ingest-every", type=int, default=4)
+    ap.add_argument("--remote-every", type=int, default=3,
+                    help="run a disaggregated-compaction scenario every "
+                         "N schedules (0 disables; data-plane mode "
+                         "only): seam faults, worker kill mid-job, "
+                         "leader kill mid-job, plus the standing "
+                         "deposed-install fence probe")
+    ap.add_argument("--failover", action="store_true",
+                    help="coordinator-backed control-plane schedules "
+                         "(Controller + Spectator + 3 participants): "
+                         "leader crash with a full AckWindow, session "
+                         "expiry, coordinator kill/WAL torn — holding "
+                         "the fourth standing invariant")
+    ap.add_argument("--cdc", action="store_true",
+                    help="CDC streaming-ingest schedules (the cdc_burst "
+                         "deck): kill/restart the exactly-once consumer "
+                         "at every seam mid-batch, a multi-kill burst, "
+                         "and a leader failover mid-consume — holding "
+                         "the EIGHTH standing invariant (applied "
+                         "records == produced prefix, exactly once, "
+                         "per partition, on every replica of the "
+                         "serving lineage)")
+    ap.add_argument("--transport", choices=["tcp", "uds", "loopback"],
+                    help="run the cluster's RPC plane on this byte layer "
+                         "(RSTPU_TRANSPORT for the run; default: ambient "
+                         "policy, i.e. tcp; data-plane mode only)")
+    ap.add_argument("--break-guard",
+                    choices=["wal_hole", "meta_first", "fencing",
+                             "remote_install", "cdc_dedup",
+                             "mux_misroute"])
     ap.add_argument("--expect-violation", action="store_true",
                     help="exit 0 iff a violation WAS caught")
+    ap.add_argument("--conv-timeout", type=float, default=30.0)
     ap.add_argument("--device", default="cuda",
-                    help="where every node's DBs compact (cuda or cpu)")
+                    help="where every DB compacts (cuda or cpu)")
     ap.add_argument("--out", help="write the result JSON here")
     args = ap.parse_args(argv)
+    if args.break_guard == "fencing" and not args.failover:
+        ap.error("--break-guard fencing requires --failover")
+    if args.break_guard == "cdc_dedup" and not args.cdc:
+        ap.error("--break-guard cdc_dedup requires --cdc")
+    if args.break_guard == "mux_misroute" and (args.failover or args.cdc):
+        ap.error("--break-guard mux_misroute is data-plane only "
+                 "(drop --failover/--cdc)")
+    if args.break_guard == "remote_install":
+        if args.failover:
+            ap.error("--break-guard remote_install is data-plane only "
+                     "(drop --failover)")
+        if not args.remote_every:
+            ap.error("--break-guard remote_install requires "
+                     "--remote-every > 0")
+    if args.failover and args.cdc:
+        ap.error("--failover / --cdc are mutually exclusive")
 
     root = tempfile.mkdtemp(prefix="rstpu-chaos-")
     t0 = time.monotonic()
     try:
-        result = run_failover_chaos(
-            root, schedules=args.schedules, seed=args.seed,
-            break_guard=args.break_guard, device=args.device,
-        )
+        if args.cdc:
+            result = run_cdc_chaos(
+                root, schedules=args.schedules, seed=args.seed,
+                break_guard=args.break_guard, device=args.device,
+            )
+        elif args.failover:
+            result = run_failover_chaos(
+                root, schedules=args.schedules, seed=args.seed,
+                break_guard=args.break_guard, device=args.device,
+            )
+        else:
+            result = run_chaos(
+                root, schedules=args.schedules, seed=args.seed,
+                writes=args.writes, ingest_every=args.ingest_every,
+                remote_every=args.remote_every,
+                break_guard=args.break_guard,
+                conv_timeout=args.conv_timeout,
+                transport=args.transport, device=args.device,
+            )
     finally:
         shutil.rmtree(root, ignore_errors=True)
     result["elapsed_sec"] = round(time.monotonic() - t0, 1)
-    print(f"chaos[failover]: {result['schedules']} schedules, "
-          f"{result['acked']} strict-ledger acks "
-          f"(+{result['window_acked']} window), "
-          f"{result['elapsed_sec']}s")
-    print(f"chaos[failover]: fault→one-leader median "
-          f"{result['failover_ms_median']} ms, fault→first-ack "
-          f"median {result['first_ack_ms_median']} ms, "
-          f"controller passes {result['passes_used']}")
-    print(f"chaos[failover]: reads {result['reads_served']} served / "
-          f"{result['reads_checked']} checked "
-          f"({result['read_bounces']} bounces) — zero staleness-"
-          f"bound or deposed-lineage violations required")
+    if args.cdc:
+        print(f"chaos[cdc]: {result['schedules']} schedules "
+              f"({', '.join(sorted(set(result['scenarios'])))}), "
+              f"{result['produced']} records produced, "
+              f"{result['kills']} consumer kills / "
+              f"{result['consumer_starts']} starts, "
+              f"{result['elapsed_sec']}s")
+    elif args.failover:
+        print(f"chaos[failover]: {result['schedules']} schedules, "
+              f"{result['acked']} strict-ledger acks "
+              f"(+{result['window_acked']} window), "
+              f"{result['elapsed_sec']}s")
+        print(f"chaos[failover]: fault→one-leader median "
+              f"{result['failover_ms_median']} ms, fault→first-ack "
+              f"median {result['first_ack_ms_median']} ms, "
+              f"controller passes {result['passes_used']}")
+        print(f"chaos[failover]: reads {result['reads_served']} served / "
+              f"{result['reads_checked']} checked "
+              f"({result['read_bounces']} bounces) — zero staleness-"
+              f"bound or deposed-lineage violations required")
+    else:
+        print(f"chaos: {result['schedules']} schedules "
+              f"[{result['transport']}], "
+              f"{result['writes']} writes ({result['acked']} acked), "
+              f"{result['elapsed_sec']}s")
+        if result.get("remote_outcomes"):
+            print(f"chaos: remote-compaction outcomes "
+                  f"{result['remote_outcomes']}")
     print(f"chaos: failpoint trips: {result['failpoint_trips']}")
     if args.out:
         with open(args.out, "w") as f:
@@ -1138,15 +2561,26 @@ def main(argv=None) -> int:
         for v in result["violations"]:
             print(f"VIOLATION: {v}")
         print(f"REPRO: python -m rocksplicator_tpu_torch.tools.chaos_soak "
-              f"--schedules {args.schedules} --seed {args.seed} "
-              f"--device {args.device}"
+              f"--schedules {args.schedules} --seed {args.seed}"
+              + (" --failover" if args.failover else "")
+              + (" --cdc" if args.cdc else "")
+              + (f" --transport {args.transport}"
+                 if args.transport else "")
               + (f" --break-guard {args.break_guard}"
-                 if args.break_guard else ""))
+                 if args.break_guard else "")
+              + f" --device {args.device}")
         return 0 if args.expect_violation else 1
     print("chaos: all invariants held"
-          + (" (exactly-one-leader, zero acked loss across handoff, "
-             "bounded shard-map convergence, bounded-staleness + "
-             "lineage reads)" if not args.break_guard else ""))
+          + ((" (CDC exactly-once: applied records == produced prefix "
+              "per partition on every serving replica — watermark, "
+              "applies-counter witness, and log-fold all agree)"
+              if args.cdc else
+              " (exactly-one-leader, zero acked loss across handoff, "
+              "bounded shard-map convergence, bounded-staleness + "
+              "lineage reads)" if args.failover else
+              " (hole-free WAL prefix, zero acked loss, ingest "
+              "atomicity)")
+             if not args.break_guard else ""))
     if args.expect_violation:
         print("ERROR: --expect-violation but the broken guard was "
               "NOT caught — the harness has lost its teeth")

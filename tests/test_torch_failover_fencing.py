@@ -23,7 +23,7 @@ Layers covered here:
 - control-plane retry adoption (spectator / shard-map agent);
 - the failover chaos harness itself + its ``--break-guard fencing``
   tooth (fast tier-1 markers; the full run is ``python -m
-  rocksplicator_tpu_torch.tools.chaos_soak --device cpu``).
+  rocksplicator_tpu_torch.tools.chaos_soak --failover --device cpu``).
 """
 
 import asyncio
