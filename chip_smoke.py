@@ -63,11 +63,11 @@ PyTorch built for CUDA. It
    sink's, no DB compacted by the per-DB fallback, no error logged by the
    port's admin logger);
 4f. drives the port's storage engine, ``storage.DB``, in the
-   environment's stream mode: the counter traffic (4 x 2^18 ops in
+   environment's stream mode: the counter traffic (4 x 2^17 ops in
    WriteBatches of 1024) through ``DB.write`` into a DB that compacts on
    the card (fused) and one on the host (``NativeCompactionBackend``), and
    run 4 into a third, on the card (bitonic), opened from the host DB's
-   checkpoint after run 3, each run's last batch flushing 2^18
+   checkpoint after run 3, each run's last batch flushing 2^17
    entries and the fourth flush compacting L0 inline, then
    ``compact_range`` (``engine_db``: files byte for byte against the
    host DB's, one K2 (K1) call a compaction and one K3 call a file, every
@@ -112,8 +112,8 @@ PyTorch built for CUDA. It
    (``remote_worker``: job A, the leader's own L0 pick at the trigger over
    a local store under a 1 GiB budget, in RAM: one K2 call and one K3
    call a file; job B, ``maybe_offload`` over the port's S3 stub under
-   a 128 MiB budget, half the default, streamed: one K2 call a chunk and
-   no K3;
+   a 64 MiB budget, a quarter of the default, streamed: one K2 call a
+   chunk and no K3;
    each installed generation sha256-identical to the same data compacted
    by ``compact_range`` on a host DB under the same budget, every key of
    A and a sample of B read back against the numpy oracle, one claim a
@@ -193,6 +193,17 @@ PyTorch built for CUDA. It
    background compactions the loop retried counted (and among them the
    card's raises), the failpoints cleared and the chaos scale restored
    however the phase ends;
+4n. drives the chaos harness's reshard and rebalance decks on card nodes
+   (``chaos_reshard``: ``run_reshard_chaos`` at the Makefile's 3
+   schedules and seed 1, every move ending completed, resumed or aborted
+   within the controller-pass bound, then its ``move_flip`` tooth;
+   ``chaos_rebalance``: ``run_rebalance_chaos`` at 3 schedules and seed 1
+   with a move and a split dispatched by the policy, its
+   ``split_cutover`` tooth, then one move and one split built from the
+   decks' schedules and ``compact_db`` on every replica of the moved
+   shard and of both children: K2 on the tuple path at least once a
+   replica, no host path, no key outside a child's retain range, and the
+   sixth, seventh and read invariants held again after the compactions);
 
 Every phase raises on failure and the script then exits non-zero. Without
 CUDA, or without the package beside it, it exits non-zero and prints no
@@ -1453,14 +1464,15 @@ def batch_compactor(dev, prepared: tuple, card: str) -> tuple:
 # ---- the port's storage engine on the card ---------------------------------
 # engine_db (and remote_worker): 4 runs of this many counter ops, written
 # through DB.write in WriteBatches of ENGINE_BATCH ops, one memtable flush
-# a run; a quarter of one launch (MAX_TPU_ENTRIES) in all, to keep the
+# a run; an eighth of one launch (MAX_TPU_ENTRIES) in all, to keep the
 # command's time (half until the chip check stopped a command of 888.3 s
-# at 1,200 s on a slower host of the same kind)
-ENGINE_RUN_ENTRIES = 1 << 18
-# remote_worker's job B: half the default 256 MiB compaction budget, so
-# that the worker streams the quarter-launch job as it streamed the
-# half-launch one under the default
-REMOTE_B_BUDGET_BYTES = 128 << 20
+# at 1,200 s on a slower host of the same kind; a quarter until the chaos
+# harness's reshard and rebalance decks came)
+ENGINE_RUN_ENTRIES = 1 << 17
+# remote_worker's job B: a quarter of the default 256 MiB compaction
+# budget, so that the worker streams the eighth-launch job as it streamed
+# the half-launch one under the default
+REMOTE_B_BUDGET_BYTES = 64 << 20
 # engine_db_background's runs: a quarter of MAX_TPU_ENTRIES, to keep the
 # command's time, under a quarter of the default 256 MiB compaction
 # budget, so that its compactions stream as they do at full depth under
@@ -1690,7 +1702,7 @@ def _timed_db(db, backend, log: list) -> None:
 
 def engine_db(dev, traffic: dict, work_dir: str, card: str,
               run3_checkpoint: str = "") -> tuple:
-    """The port's DB at a quarter of MAX_TPU_ENTRIES: the counter traffic written
+    """The port's DB at an eighth of MAX_TPU_ENTRIES: the counter traffic written
     through DB.write into a DB that compacts on the card under the fused
     sort backend (K2) and one that compacts on the host (the port's
     NativeCompactionBackend); a third DB, on the card under the bitonic
@@ -2992,8 +3004,11 @@ def replicated_counter(dev, traffic: dict, work_dir: str,
 # at 1,062.0 s on one H100 host, went past its 1,200 s limit on another;
 # halved again (2^20 before), with the stress requests and the read sample,
 # once the whole command, at 888.3 s on one H100 host, went past its limit
-# on another, where the host-bound phases ran up to 1.9 times as long
-COUNTERS = 1 << 19
+# on another, where the host-bound phases ran up to 1.9 times as long;
+# halved again (2^19 before), with the stress requests and the read sample,
+# to pay for the chaos harness's reshard and rebalance decks (about 100 s)
+# inside the command's time
+COUNTERS = 1 << 18
 COUNTER_SHARDS = 2
 COUNTER_FILES = 4  # SST files a shard's bulk load
 COUNTER_SEED = 1010
@@ -3001,9 +3016,9 @@ STRESS_THREADS = 8
 # the stress requests and the read sample halved (16,384 each before) for
 # the command's time once cluster_reshape came: with them and that phase's
 # own two cuts the command took 1363.9 s on the card; the requests halved
-# again with the counters
-STRESS_REQUESTS = 2048
-COUNTER_SAMPLE = 4096  # loaded counters read back from every replica
+# again with the counters, twice
+STRESS_REQUESTS = 1024
+COUNTER_SAMPLE = 2048  # loaded counters read back from every replica
 COUNTER_READ_WINDOW = 512  # get_counter calls in flight at once
 COUNTER_DRAIN_S = 10.0  # GracefulShutdownHandler's default drain timeout
 # the nodes run the quick start's command; the device is its default,
@@ -3011,8 +3026,10 @@ COUNTER_DRAIN_S = 10.0  # GracefulShutdownHandler's default drain timeout
 # launch floor)
 COUNTER_NODE_ARGS: tuple = ()
 COUNTER_MIN_LAUNCHES = 2
-# the performance harness's sub-phase, warm-up and linger cut to seconds
-PERF_ARGS = ("--num_shards", "8", "--num_keys_per_shard_thread", "4096",
+# the performance harness's sub-phase, warm-up and linger cut to seconds;
+# the keys a shard's thread writes 4,096 → 2,048 for the chaos harness's
+# reshard and rebalance decks
+PERF_ARGS = ("--num_shards", "8", "--num_keys_per_shard_thread", "2048",
              "--value_size", "1024")
 PERF_WARMUP_S = 3
 PERF_LINGER_S = 3
@@ -3548,10 +3565,11 @@ def performance(work_dir: str, card: str) -> tuple:
 # for the command's time: 2^19 records (the phase took 469 s at 2^20, most
 # of it the consumer's backpressure sleeps), then 2^18 once cluster_reshape
 # came (the command took 1363.9 s at 2^19 with that phase's own two cuts),
-# then 2^17 with the counter service's counters, then 2^16 with them
-# again, the key space halved each time and the preload kept at a quarter
-CDC_RECORDS = 1 << 16
-CDC_KEY_SPACE = 1 << 15  # each key written about twice
+# then 2^17 with the counter service's counters, then 2^16 and 2^15 with
+# them again, the key space halved each time and the preload kept at a
+# quarter
+CDC_RECORDS = 1 << 15
+CDC_KEY_SPACE = 1 << 14  # each key written about twice
 CDC_VALUE_BYTES = 256  # the macro bench's --cdc_value_bytes default
 CDC_DELETE_SHARE = 0.1  # empty values, applied as DELETEs
 CDC_PRELOAD = CDC_RECORDS // 4  # produced before start_message_ingestion
@@ -3560,8 +3578,11 @@ CDC_SEED = 1111
 CDC_DB = "seg00000"  # shard 0 reads partition 0
 CDC_MEMTABLE_BYTES = 8 << 20  # the engine's default
 CDC_READ_SLICE = 1 << 14
-# cdc_network: the networked broker and the consumer app as processes
-CDC_NET_RECORDS = 1 << 14
+# cdc_network: the networked broker and the consumer app as processes;
+# 2^13 records (2^14 until the reshard and rebalance decks came, for the
+# command's time: its producers and the app printing every record took
+# 30 of its 45 s)
+CDC_NET_RECORDS = 1 << 13
 CDC_NET_PRODUCERS = 8
 CDC_NET_DB = "seg00001"  # unreplicated, on the leader's node; partition 1
 
@@ -5124,11 +5145,12 @@ def cluster_failover(dev, work_dir: str, card: str) -> tuple:
 
 RESHAPE_SEED = 1414
 # base and hot loads cut from 2^19 to 2^18 ops each, then to 2^17 and 2^16
-# with the counter service's counters, for the command's time (a run is at
-# least one batch of ENGINE_BATCH ops)
+# with the counter service's counters, for the command's time, and the hot
+# load to 2^15 for the chaos harness's reshard and rebalance decks (a run
+# is at least one batch of ENGINE_BATCH ops)
 RESHAPE_BASE_RUN = 1 << 10  # 4 runs a shard: 2^17 ops over 32 shards
 RESHAPE_KEY_SPACE = 1 << 13  # twice a shard's base ops
-RESHAPE_HOT_RUN = 1 << 14  # 4 runs into H: 2^16 ops, half the hot load
+RESHAPE_HOT_RUN = 1 << 13  # 4 runs into H: 2^15 ops
 RESHAPE_HOT_KEY_SPACE = 1 << 18
 RESHAPE_COLD_RUN = 1 << 10  # 4 runs into each other shard: 126,976 ops
 RESHAPE_POLICY_RUN = 1 << 10  # 4 runs a shard in the policy step, sent twice
@@ -6408,7 +6430,12 @@ def _chaos_deck(run, what: str, dev, work_dir: str, **kw) -> tuple:
     report = {k: result[k] for k in (
         "schedules", "seed", "writes", "acked", "produced", "kills",
         "consumer_starts", "scenarios", "violations", "failpoint_trips",
-        "remote_outcomes", "break_guard") if k in result}
+        "remote_outcomes", "break_guard", "deck", "move_outcomes",
+        "move_ms_median", "passes_used", "write_errors", "window_acked",
+        "reads_served", "reads_checked", "read_bounces", "dispatched",
+        "resumes", "tick_errors", "schedule_ms", "compactions",
+        "replicas_compacted", "k2_compact", "host_path", "split",
+        "retain_strays", "out_of_range_on_rebuilt") if k in result}
     report.update(bg.report())
     report["seconds"] = time.perf_counter() - t0
     report["k2"] = launches["fused_resolve"]
@@ -6422,8 +6449,12 @@ def _add_launches(total: dict, launches: dict) -> None:
 
 
 def _check_tooth(report: dict, phrase, what: str) -> None:
+    """``phrase``: None (any violation), a phrase, or a tuple of phrases
+    one violation must hold one of."""
+    phrases = (phrase,) if isinstance(phrase, str) else phrase
     caught = report["violations"] and (
-        phrase is None or any(phrase in v for v in report["violations"]))
+        phrases is None or any(p in v for v in report["violations"]
+                               for p in phrases))
     if not caught:
         raise AssertionError(f"{what}: the tooth was NOT caught "
                              f"(violations {report['violations']})")
@@ -6614,6 +6645,328 @@ def chaos_cdc(dev, work_dir: str, card: str) -> tuple:
         _set_chaos_knobs(knobs)
     if leaked:
         raise AssertionError("chaos_cdc: a deck left the chaos scale set")
+    report["seconds"] = time.perf_counter() - t0
+    return report, launches
+
+
+# ---------------------------------------------------------------------------
+# chaos_reshard, chaos_rebalance: the chaos harness's reshard and rebalance
+# decks (rocksplicator_tpu_torch/tools/chaos_soak.py) on card nodes: a
+# FailoverCluster of 4 nodes, one shard of 3 replicas (2 hash shards for the
+# rebalance deck), every node's admin plane compacting on the card. The
+# decks keep the reference's shapes (tools/chaos_soak.py:2006-3297: its move
+# and policy pacing, 20 ms and 4 ms writers, 1 s sessions); arguments are the
+# Makefile's reshard-smoke (:396-401) and rebalance-smoke (:247-252), the
+# teeth with a 5 s heal window as the reference's tier-1 cases run them.
+# ---------------------------------------------------------------------------
+
+RESHARD_CHAOS_SCHEDULES = 3  # make reshard-smoke
+RESHARD_CHAOS_SEED = 1
+REBALANCE_CHAOS_SCHEDULES = 3  # make rebalance-smoke
+REBALANCE_CHAOS_SEED = 1
+RESHAPE_TOOTH_HEAL_S = 5.0
+RESHAPE_COMPACT_SEED = 1
+
+
+def _reshape_compact_run(root: str, log, device, seed: int) -> dict:
+    """One move and one split on card nodes, each followed by compact_db
+    on every replica it made, built from the decks' own pieces.
+
+    A ``FailoverCluster`` of 4 nodes and 2 hash shards on ``device``, under
+    the chaos scale: one ``move_clean_leader`` schedule
+    (``_reshard_schedule``: shard 0's leader moves under its background
+    writer), the sixth invariant and the reads' (``_check_reshard_
+    invariants``, ``_check_read_invariants``), compact_db by admin RPC on
+    the moved shard's three replicas, both invariants again; then one
+    ``rebalance_split_hot`` schedule (``_rebalance_schedule``: the policy
+    splits shard 0, its splitter killed at the cutover and resumed), the
+    move's acked writes carried into the parent's ledger so the seventh
+    invariant (``_check_rebalance_invariants``) checks them on the child
+    that owns each, compact_db on the six child replicas (where a child
+    holds a retain range, the trim: ``DB._retain_filter``), and the
+    seventh invariant again. The decks write tens of keys a schedule into
+    32 KiB memtables and never compact; this is their way to K2 (on the
+    tuple path: the chaos keys vary in width). The schedules' tags are
+    short (``m1``, ``s1``), so their keys fit K2's 24-byte key lanes
+    (``ops/kv_format.py`` ``KEY_BYTES``, as in the JAX package); the
+    decks' own tags (``s00-<kind>/seed 1``) make keys of 25-40 bytes,
+    which every backend merges on the host.
+
+    Each compaction's K2 launches and host-path merges
+    (``NumpyCompactionBackend.merge_runs``, the card backend's fallback)
+    are counted; a child replica with a retain range is scanned for keys
+    outside it, and one without (rebuilt from a peer, F14) for rows other
+    than the decks' own (a deck writes key = value, or ``<tag>-k<i>`` =
+    ``<tag>-v<i>``)."""
+    import random
+    import threading
+
+    from rocksplicator_tpu_torch.cluster.shard_split import list_splits
+    from rocksplicator_tpu_torch.gpu import NumpyCompactionBackend
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.testing import failpoints as fp
+    from rocksplicator_tpu_torch.tools import chaos_soak as cs
+    from rocksplicator_tpu_torch.utils.segment_utils import (
+        db_name_to_partition_name, segment_to_db_name)
+
+    violations: list = []
+    host_calls: list = []
+    real_merge = NumpyCompactionBackend.merge_runs
+
+    def counted_merge(backend, *args, **kwargs):
+        host_calls.append(threading.current_thread().name)
+        return real_merge(backend, *args, **kwargs)
+
+    def k2() -> int:
+        return _build.LAUNCHES.get("fused_resolve", 0)
+
+    def compact(cluster, db: str, hosts: list) -> list:
+        out = []
+        for n in hosts:
+            k0, h0, t0 = k2(), len(host_calls), time.perf_counter()
+            cluster.admin.compact_db(
+                (n.instance.host, n.instance.admin_port), db)
+            out.append({"node": n.name, "db": db, "k2": k2() - k0,
+                        "host_path": len(host_calls) - h0,
+                        "seconds": time.perf_counter() - t0})
+        return out
+
+    compactions: list = []
+    strays: dict = {}
+    rebuilt: dict = {}
+    split_info = None
+    timings = {"move_ms": [], "move_outcomes": {}, "write_errors": 0,
+               "window_acked": 0, "reads_checked": 0, "reads_served": 0,
+               "read_bounces": 0, "tick_errors": 0, "dispatched": {},
+               "resumes": 0, "schedule_ms": []}
+    passes: list = []
+    with cs._chaos_scale():
+        fp.clear()
+        cluster = cs.FailoverCluster(root, num_nodes=4, num_shards=2,
+                                     device=device)
+        NumpyCompactionBackend.merge_runs = counted_merge
+        try:
+            cluster.wait_initial_convergence()
+            part, db = cluster.partitions[0], cluster.db_names[0]
+            acked: list = []
+            tag = f"m{seed}"
+            try:
+                cs._reshard_schedule("move_clean_leader")(
+                    cluster, random.Random(seed * 1_000_003), acked,
+                    violations, tag, timings)
+            finally:
+                fp.clear()
+            passes.append(cs._check_reshard_invariants(
+                cluster, acked, tag, violations))
+            cs._check_read_invariants(cluster, acked, tag, violations,
+                                      timings)
+            compactions += compact(
+                cluster, db, [n for n in cluster.nodes if n.state_of(part)])
+            tag += " compacted"
+            passes.append(cs._check_reshard_invariants(
+                cluster, acked, tag, violations))
+            cs._check_read_invariants(cluster, acked, tag, violations,
+                                      timings)
+            acked_by_shard = {0: list(acked)}
+            tag = f"s{seed}"
+            try:
+                cs._rebalance_schedule("rebalance_split_hot")(
+                    cluster, random.Random(seed * 1_000_003 + 1),
+                    acked_by_shard, violations, tag, timings)
+            finally:
+                fp.clear()
+            passes.append(cs._check_rebalance_invariants(
+                cluster, acked_by_shard, tag, violations))
+            split = next((r for r in list_splits(cluster.client,
+                                                 cluster.cluster)
+                          if r.segment == cluster.segment
+                          and r.parent_shard == 0 and r.phase == "active"),
+                         None)
+            if split is None:
+                violations.append(f"{tag}: shard 0 was not split")
+            else:
+                key = split.split_key_bytes
+                split_info = {"low": split.low_shard,
+                              "high": split.high_shard,
+                              "split_key": key.hex()}
+                for child, lo, hi in ((split.low_shard, None, key),
+                                      (split.high_shard, key, None)):
+                    cdb = segment_to_db_name(cluster.segment, child)
+                    cpart = db_name_to_partition_name(cdb)
+                    hosts = [n for n in cluster.nodes if n.state_of(cpart)]
+                    compactions += compact(cluster, cdb, hosts)
+                    for n in hosts:
+                        meta = n.handler.get_meta_data(cdb)
+                        app = n.handler.db_manager.get_db(cdb)
+                        outside = [] if app is None else [
+                            (k, v) for k, v in app.db.new_iterator()
+                            if not k.startswith(b"\x00")
+                            and ((lo is not None and k < lo)
+                                 or (hi is not None and k >= hi))]
+                        name = f"{n.name}:{child}"
+                        if meta.retain_lo or meta.retain_hi:
+                            strays[name] = len(outside)
+                            if outside:
+                                violations.append(
+                                    f"{tag}: {name} keeps {len(outside)} "
+                                    f"keys outside its retain range after "
+                                    f"compact_db")
+                        else:
+                            rebuilt[name] = len(outside)
+                            foreign = [
+                                k for k, v in outside
+                                if v not in (k, k.replace(b"-k", b"-v"))]
+                            if foreign:
+                                violations.append(
+                                    f"{tag}: rebuilt {name} holds "
+                                    f"{len(foreign)} rows no deck wrote "
+                                    f"outside its range")
+            tag += " compacted"
+            passes.append(cs._check_rebalance_invariants(
+                cluster, acked_by_shard, tag, violations))
+        finally:
+            NumpyCompactionBackend.merge_runs = real_merge
+            fp.clear()
+            cluster.stop()
+    return {"schedules": 2, "seed": seed, "violations": violations,
+            "failpoint_trips": fp.trip_counts(),
+            "acked": sum(len(v) for v in acked_by_shard.values()),
+            "move_outcomes": timings["move_outcomes"],
+            "dispatched": timings["dispatched"],
+            "resumes": timings["resumes"], "passes_used": passes,
+            "split": split_info, "compactions": compactions,
+            "replicas_compacted": len(compactions),
+            "k2_compact": sum(c["k2"] for c in compactions),
+            "host_path": len(host_calls),
+            "retain_strays": strays, "out_of_range_on_rebuilt": rebuilt}
+
+
+def chaos_reshard(dev, work_dir: str, card: str) -> tuple:
+    """The reshard deck on card nodes: ``run_reshard_chaos`` (3 schedules,
+    seed 1) with no violation, every move ending completed, resumed,
+    aborted or with nothing to resume (none wedged, none failing its abort
+    or resume), every schedule healed within ``RESHARD_PASS_BOUND``
+    controller passes; then its ``move_flip`` tooth (1 schedule, seed 7),
+    which the lineage probes must catch. The failpoints are cleared and
+    the chaos scale restored however it ends."""
+    from rocksplicator_tpu_torch.testing import failpoints as fp
+    from rocksplicator_tpu_torch.tools.chaos_soak import (
+        RESHARD_PASS_BOUND, run_reshard_chaos)
+
+    knobs = _chaos_knobs()
+    launches: dict = {}
+    report = {"card": card, "decks": {}}
+    t0 = time.perf_counter()
+    try:
+        deck, n = _chaos_deck(run_reshard_chaos, "chaos_reshard", dev,
+                              work_dir, schedules=RESHARD_CHAOS_SCHEDULES,
+                              seed=RESHARD_CHAOS_SEED)
+        _add_launches(launches, n)
+        report["decks"]["reshard"] = deck
+        if deck["violations"]:
+            raise AssertionError(
+                f"chaos_reshard: violations in the healthy deck: "
+                f"{deck['violations']}")
+        bad = set(deck["move_outcomes"]) & {"wedged", "abort_failed",
+                                            "resume_failed"}
+        if bad or sum(deck["move_outcomes"].values()) != len(deck["deck"]):
+            raise AssertionError(
+                f"chaos_reshard: move outcomes {deck['move_outcomes']} "
+                f"for the deck {deck['deck']}")
+        if any(p > RESHARD_PASS_BOUND for p in deck["passes_used"]):
+            raise AssertionError(
+                f"chaos_reshard: controller passes {deck['passes_used']} "
+                f"past the bound {RESHARD_PASS_BOUND}")
+        tooth, n = _chaos_deck(
+            run_reshard_chaos, "chaos_move_flip", dev, work_dir,
+            schedules=CHAOS_TOOTH_SCHEDULES, seed=CHAOS_TOOTH_SEED,
+            break_guard="move_flip", heal_timeout=RESHAPE_TOOTH_HEAL_S)
+        _add_launches(launches, n)
+        _check_tooth(tooth, ("SERVING LINEAGE", "NEW LINEAGE"),
+                     "chaos_reshard move_flip")
+        report["decks"]["move_flip"] = tooth
+        for name, d in report["decks"].items():
+            if d["tuple_fallbacks"]:
+                raise AssertionError(
+                    f"chaos_reshard {name}: {d['tuple_fallbacks']} card "
+                    f"compactions took the host's tuple path")
+    finally:
+        fp.clear()
+        leaked = _chaos_knobs() != knobs
+        _set_chaos_knobs(knobs)
+    if leaked:
+        raise AssertionError("chaos_reshard: a deck left the chaos scale "
+                             "set")
+    report["seconds"] = time.perf_counter() - t0
+    return report, launches
+
+
+def chaos_rebalance(dev, work_dir: str, card: str) -> tuple:
+    """The rebalance deck on card nodes: ``run_rebalance_chaos`` (3
+    schedules, seed 1) with no violation and at least one move and one
+    split dispatched by the policy; its ``split_cutover`` tooth (1
+    schedule, seed 7), which must be caught; then ``_reshape_compact_run``,
+    which fails on any violation, on a replica's compact_db that saw no
+    K2 launch, or on a compaction that took the host's path. Fails on a
+    tuple-path fallback in any of them."""
+    from rocksplicator_tpu_torch.testing import failpoints as fp
+    from rocksplicator_tpu_torch.tools.chaos_soak import run_rebalance_chaos
+
+    knobs = _chaos_knobs()
+    launches: dict = {}
+    report = {"card": card, "decks": {}}
+    t0 = time.perf_counter()
+    try:
+        deck, n = _chaos_deck(run_rebalance_chaos, "chaos_rebalance", dev,
+                              work_dir, schedules=REBALANCE_CHAOS_SCHEDULES,
+                              seed=REBALANCE_CHAOS_SEED)
+        _add_launches(launches, n)
+        report["decks"]["rebalance"] = deck
+        if deck["violations"]:
+            raise AssertionError(
+                f"chaos_rebalance: violations in the healthy deck: "
+                f"{deck['violations']}")
+        if not (deck["dispatched"].get("move")
+                and deck["dispatched"].get("split")):
+            raise AssertionError(
+                f"chaos_rebalance: the policy dispatched "
+                f"{deck['dispatched']}, not a move and a split")
+        tooth, n = _chaos_deck(
+            run_rebalance_chaos, "chaos_split_cutover", dev, work_dir,
+            schedules=CHAOS_TOOTH_SCHEDULES, seed=CHAOS_TOOTH_SEED,
+            break_guard="split_cutover", heal_timeout=RESHAPE_TOOTH_HEAL_S)
+        _add_launches(launches, n)
+        _check_tooth(tooth, None, "chaos_rebalance split_cutover")
+        report["decks"]["split_cutover"] = tooth
+        run, n = _chaos_deck(_reshape_compact_run, "chaos_reshape_compact",
+                             dev, work_dir, seed=RESHAPE_COMPACT_SEED)
+        _add_launches(launches, n)
+        report["decks"]["reshape_compact"] = run
+        if run["violations"]:
+            raise AssertionError(
+                f"chaos_rebalance: violations around the compactions: "
+                f"{run['violations']}")
+        if any(c["k2"] < 1 for c in run["compactions"]) \
+                or run["replicas_compacted"] < 9:
+            raise AssertionError(
+                f"chaos_rebalance: a compact_db with no K2 launch, or "
+                f"fewer than 9 replicas compacted ({run['compactions']})")
+        if run["host_path"]:
+            raise AssertionError(
+                f"chaos_rebalance: {run['host_path']} card compactions "
+                f"took the host's path")
+        for name, d in report["decks"].items():
+            if d["tuple_fallbacks"]:
+                raise AssertionError(
+                    f"chaos_rebalance {name}: {d['tuple_fallbacks']} card "
+                    f"compactions took the host's tuple path")
+    finally:
+        fp.clear()
+        leaked = _chaos_knobs() != knobs
+        _set_chaos_knobs(knobs)
+    if leaked:
+        raise AssertionError("chaos_rebalance: a deck left the chaos scale "
+                             "set")
     report["seconds"] = time.perf_counter() - t0
     return report, launches
 
@@ -7210,6 +7563,30 @@ def main() -> int:
             "cdc_k2": chaos_cdc_launches["fused_resolve"],
             "cdc_k3": chaos_cdc_launches["bloom_build"],
             "seconds": [chaos["seconds"], chaos_c["seconds"]]})
+        # ---- 4n. the chaos harness's reshard and rebalance decks -------
+        reshard_r, chaos_reshard_launches = chaos_reshard(dev, work_dir,
+                                                          card)
+        emit({"phase": "chaos_reshard", "elapsed_s":
+              time.time() - _STARTED, **reshard_r})
+        rebalance_r, chaos_rebalance_launches = chaos_rebalance(
+            dev, work_dir, card)
+        emit({"phase": "chaos_rebalance", "elapsed_s":
+              time.time() - _STARTED, **rebalance_r})
+        emit({"phase": "chaos_reshape_summary", "card": card, "decks": {
+            f"{p}.{k}": {f: d.get(f) for f in (
+                "schedules", "deck", "acked", "seconds", "violations",
+                "failpoint_trips", "move_outcomes", "passes_used",
+                "dispatched", "resumes", "replicas_compacted", "k2_compact",
+                "host_path", "retain_strays", "out_of_range_on_rebuilt",
+                "bg_failures_retried", "k2", "k3")}
+            for p, r in (("chaos_reshard", reshard_r),
+                         ("chaos_rebalance", rebalance_r))
+            for k, d in r["decks"].items()},
+            "k2": [chaos_reshard_launches["fused_resolve"],
+                   chaos_rebalance_launches["fused_resolve"]],
+            "k3": [chaos_reshard_launches["bloom_build"],
+                   chaos_rebalance_launches["bloom_build"]],
+            "seconds": [reshard_r["seconds"], rebalance_r["seconds"]]})
         cost = instrumentation_cost()
         per_stream = stream["backends"]["fused"]["counters"]
         emit({"phase": "instrumented_seconds", "card": card,
@@ -7252,6 +7629,8 @@ def main() -> int:
         "cluster_reshape": reshape_launches,
         "chaos_dataplane": chaos_launches,
         "chaos_cdc": chaos_cdc_launches,
+        "chaos_reshard": chaos_reshard_launches,
+        "chaos_rebalance": chaos_rebalance_launches,
     }
     launches_by_path = {p: {k: c[k] for k in sources}
                         for p, c in launches_by_path.items()}

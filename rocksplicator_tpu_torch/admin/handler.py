@@ -353,6 +353,11 @@ class AdminHandler:
                 "epoch": rdb.epoch if rdb is not None else 0,
                 "write_paused": (rdb.write_paused
                                  if rdb is not None else False),
+                # a leader that an inbound epoch fenced: the participant
+                # reads it when the controller re-anoints this node at
+                # the epoch that fenced it (state_models/leader_follower
+                # ``reanoint_fenced``)
+                "fenced": bool(rdb is not None and rdb.fenced),
                 # a puller whose position predates its upstream's WAL:
                 # the participant loop converts this into a snapshot
                 # rebuild (pulling can never catch it up)

@@ -119,7 +119,8 @@ class Participant:
             try:
                 for partition, state in self.current_states.items():
                     db_name = partition_name_to_db_name(partition)
-                    if state in ("LEADER", "MASTER"):
+                    if state in ("LEADER", "MASTER") \
+                            and self._leads_in_ledger(partition):
                         seq = self.admin.get_sequence_number(
                             self.ctx.local_admin_addr, db_name)
                         if seq is not None:
@@ -129,6 +130,16 @@ class Participant:
             except Exception:
                 if not self._stopped:
                     log.exception("partition seq updater failed")
+
+    def _leads_in_ledger(self, partition: str) -> bool:
+        """Whether the fencing-epoch ledger names this node the leader of
+        ``partition`` (True where it names no one). A leader deposed
+        while its session lapsed still claims LEADER here and may take
+        writes no follower acks; checkpointing its seq would hold the
+        lineage's replicas below the 3-node-failure guard (the port's
+        repair; the reference checkpoints every claimer's seq)."""
+        _epoch, leader = self.ctx.epoch_ledger(partition)
+        return leader in (None, self.instance.instance_id)
 
     def _heal_pull_stall(self, partition: str, db_name: str) -> None:
         """Self-heal a steady follower whose pull loop can NEVER
@@ -382,6 +393,8 @@ class Participant:
                 self.ctx.local_admin_addr,
                 partition_name_to_db_name(partition), epoch,
             )
+            if self.current_states.get(partition) in ("LEADER", "MASTER"):
+                self._reanoint_if_fenced(partition, epoch)
             with self._state_lock:
                 if epoch > self._applied_epoch.get(partition, 0):
                     self._applied_epoch[partition] = epoch
@@ -401,6 +414,28 @@ class Participant:
                 except Exception:
                     log.exception(
                         "%s: post-adopt re-evaluation failed", partition)
+
+    def _reanoint_if_fenced(self, partition: str, epoch: int) -> None:
+        """A sticky leader whose followers carried ``epoch`` to it before
+        it adopted it is fenced at its own epoch, which the adoption
+        cannot clear: re-promote it through the state model (the port's
+        repair; the reference stays fenced, with no serving leader)."""
+        reanoint = getattr(self.factory.get(partition), "reanoint_fenced",
+                           None)
+        if reanoint is None:
+            return
+        try:
+            if not reanoint(epoch):
+                return
+        except Exception:
+            # the data plane may have left its leader role mid-way: ERROR,
+            # so the controller replans it through OFFLINE like any failed
+            # promotion
+            self._set_current(partition, ERROR)
+            raise
+        Stats.get().incr("participant.fenced_reanointments")
+        log.warning("%s: fenced at its own epoch %d — re-promoted",
+                    partition, epoch)
 
     def _rejoin(self) -> None:
         """Called by the coordinator client after it re-established an

@@ -196,6 +196,19 @@ class ClusterContext:
             return None
         return int(json.loads(bytes(raw).decode()).get("last_leader_seq", 0))
 
+    def epoch_ledger(self, partition: str) -> Tuple[int, Optional[str]]:
+        """(epoch, leader) of the partition's fencing-epoch ledger record,
+        which the controller writes as it mints each epoch for exactly
+        one leader; (0, None) where there is none."""
+        import json
+
+        raw = self.coord.get_or_none(self._path("epochs", partition))
+        try:
+            rec = json.loads(bytes(raw).decode()) if raw else {}
+            return int(rec.get("epoch", 0)), rec.get("leader")
+        except (ValueError, UnicodeDecodeError, AttributeError):
+            return 0, None
+
     def set_partition_seq(self, partition: str, seq: int) -> None:
         import json
         import time as _time

@@ -40,6 +40,9 @@ CATCH_UP_MARGIN = 10
 # current-state values that mean "is the leader" — the MasterSlave subclass
 # publishes MASTER, so every external-view comparison must accept both
 LEADERLIKE = {"LEADER", "MASTER"}
+# current-state values of a replica that holds the lineage's data: a
+# promotion must read each live one's seq
+SERVING = LEADERLIKE | {"FOLLOWER", "SLAVE"}
 
 
 class LeaderFollowerStateModel(StateModel):
@@ -230,64 +233,7 @@ class LeaderFollowerStateModel(StateModel):
                     raise TransitionError(
                         f"{self.partition}: {iid} is still {state}"
                     )
-            local = ctx.admin.get_sequence_number(
-                ctx.local_admin_addr, self.db_name
-            ) or 0
-            # highest-seq election: catch up from any replica ahead of us
-            best_iid, best_seq, best_info = None, local, None
-            for iid, (info, _state, seq) in replicas.items():
-                if iid == ctx.instance.instance_id or seq is None:
-                    continue
-                if seq > best_seq:
-                    best_iid, best_seq, best_info = iid, seq, info
-            if best_info is not None:
-                ctx.log_event(self.partition, "catch_up_via_peer",
-                              f"peer={best_iid} seq={best_seq}")
-                ctx.admin.change_db_role_and_upstream(
-                    ctx.local_admin_addr, self.db_name, "FOLLOWER",
-                    (best_info.host, best_info.repl_port),
-                    epoch=ctx.partition_epoch(self.partition),
-                )
-                # margin=0: the peer has no leader feeding it, so its seq
-                # is static and exact catch-up terminates. Promoting even
-                # a few seqs short would strand writes that exist only on
-                # the peer (it can never hand them to the new leader) and
-                # leave the replica set divergent until enough fresh
-                # writes paper over the seq gap — with none, forever
-                # (reference :230-303 promotes the caught-up candidate).
-                if not self._catch_up(
-                    (best_info.host, best_info.admin_port),
-                    time.monotonic() + ctx.catch_up_timeout,
-                    margin=0,
-                ):
-                    raise TransitionError(
-                        f"{self.partition}: catch-up from {best_iid} "
-                        f"(seq {best_seq}) incomplete; retrying promotion"
-                    )
-            # 3-node-failure guard (reference :291-303): refuse promotion if
-            # we're far behind the last known leader seq in the coordinator.
-            # Slack is ctx.promotion_seq_slack (default = REBUILD_SEQ_GAP):
-            # chaos-sized clusters tighten it so a data-poor candidate can
-            # never be promoted past a checkpointed lineage it hasn't
-            # caught up to.
-            persisted = ctx.get_partition_seq(self.partition)
-            local = ctx.admin.get_sequence_number(
-                ctx.local_admin_addr, self.db_name
-            ) or 0
-            if persisted is not None and \
-                    local + ctx.promotion_seq_slack < persisted:
-                raise TransitionError(
-                    f"{self.partition}: local seq {local} too far behind "
-                    f"last leader seq {persisted}; refusing promotion"
-                )
-            # the promotion carries the controller-minted epoch: every
-            # ack this leader hands out is stamped with it, and any
-            # deposed predecessor seeing it on a follower frame fences
-            ctx.admin.change_db_role_and_upstream(
-                ctx.local_admin_addr, self.db_name, "LEADER",
-                epoch=ctx.partition_epoch(self.partition),
-            )
-            ctx.set_partition_seq(self.partition, local)
+            self._promote_local(replicas, "retrying promotion")
             ctx.log_event(self.partition, "follower_to_leader_success")
         except Exception:
             ctx.log_event(self.partition, "follower_to_leader_failure")
@@ -295,14 +241,170 @@ class LeaderFollowerStateModel(StateModel):
         finally:
             ctx.release_partition_lock(lock)
 
+    def _promote_local(self, replicas: Dict[str, Tuple], retry: str,
+                       epoch: Optional[int] = None) -> None:
+        """The promotion's data steps, under the partition lock: read
+        every live serving replica's seq, catch up from the highest,
+        apply the 3-node-failure guard, reopen as LEADER and checkpoint
+        the seq.
+        ``epoch`` None stamps the controller-minted epoch as each step
+        reads it and checkpoints the local seq, as the reference's
+        promotion does; an explicit ``epoch`` (a re-promotion) stamps
+        that one and never lowers the checkpointed seq."""
+        ctx = self.ctx
+
+        def stamp() -> int:
+            return (ctx.partition_epoch(self.partition) if epoch is None
+                    else epoch)
+
+        # a live replica with the lineage's data whose seq could not be
+        # read (a db reopening for a repoint answers DB_NOT_FOUND) may be
+        # ahead of us: promoting past it strands its suffix, and it then
+        # clears itself as diverged. Refuse and retry (ROADMAP F21; the
+        # port's repair, the reference elects without it)
+        unread = sorted(iid for iid, (_info, state, seq) in replicas.items()
+                        if iid != ctx.instance.instance_id
+                        and state in SERVING and seq is None)
+        if unread:
+            raise TransitionError(
+                f"{self.partition}: seq of {', '.join(unread)} "
+                f"unreadable; {retry}"
+            )
+        local = ctx.admin.get_sequence_number(
+            ctx.local_admin_addr, self.db_name
+        ) or 0
+        # highest-seq election: catch up from any replica ahead of us
+        best_iid, best_seq, best_info = None, local, None
+        for iid, (info, _state, seq) in replicas.items():
+            if iid == ctx.instance.instance_id or seq is None:
+                continue
+            if seq > best_seq:
+                best_iid, best_seq, best_info = iid, seq, info
+        if best_info is not None:
+            ctx.log_event(self.partition, "catch_up_via_peer",
+                          f"peer={best_iid} seq={best_seq}")
+            ctx.admin.change_db_role_and_upstream(
+                ctx.local_admin_addr, self.db_name, "FOLLOWER",
+                (best_info.host, best_info.repl_port), epoch=stamp(),
+            )
+            # margin=0: the peer has no leader feeding it, so its seq
+            # is static and exact catch-up terminates. Promoting even
+            # a few seqs short would strand writes that exist only on
+            # the peer (it can never hand them to the new leader) and
+            # leave the replica set divergent until enough fresh
+            # writes paper over the seq gap — with none, forever
+            # (reference :230-303 promotes the caught-up candidate).
+            if not self._catch_up(
+                (best_info.host, best_info.admin_port),
+                time.monotonic() + ctx.catch_up_timeout,
+                margin=0,
+            ):
+                raise TransitionError(
+                    f"{self.partition}: catch-up from {best_iid} "
+                    f"(seq {best_seq}) incomplete; {retry}"
+                )
+        # 3-node-failure guard (reference :291-303): refuse promotion if
+        # we're far behind the last known leader seq in the coordinator.
+        # Slack is ctx.promotion_seq_slack (default = REBUILD_SEQ_GAP):
+        # chaos-sized clusters tighten it so a data-poor candidate can
+        # never be promoted past a checkpointed lineage it hasn't
+        # caught up to.
+        persisted = ctx.get_partition_seq(self.partition)
+        local = ctx.admin.get_sequence_number(
+            ctx.local_admin_addr, self.db_name
+        ) or 0
+        if persisted is not None and \
+                local + ctx.promotion_seq_slack < persisted:
+            raise TransitionError(
+                f"{self.partition}: local seq {local} too far behind "
+                f"last leader seq {persisted}; refusing promotion"
+            )
+        # the promotion carries the controller-minted epoch: every
+        # ack this leader hands out is stamped with it, and any
+        # deposed predecessor seeing it on a follower frame fences
+        ctx.admin.change_db_role_and_upstream(
+            ctx.local_admin_addr, self.db_name, "LEADER", epoch=stamp(),
+        )
+        if epoch is not None and persisted is not None:
+            local = max(local, persisted)
+        ctx.set_partition_seq(self.partition, local)
+
+    def reanoint_fenced(self, epoch: int) -> bool:
+        """Re-promote this replica when the controller re-anointed it at
+        the very epoch that fenced it, and return True; change nothing
+        and return False in every other case.
+
+        The controller mints a fresh epoch when it keeps leadership with
+        a node that claims LEADER but is not the ledger's leader (a node
+        whose session lapsed and that came back still claiming). Its
+        followers learn the epoch from their repoints and can pull
+        before the leader adopts it: the leader, still at its old epoch,
+        sees a newer one and fences itself. ``adopt_epoch`` clears a
+        fence only strictly above the fencing epoch, so the adoption
+        leaves the leader fenced at its own epoch: one claimer in the
+        control plane, and a data plane that refuses every write and
+        serve for good.
+
+        When the local replica is a fenced LEADER and the epoch ledger
+        records THIS node as the leader at exactly ``epoch``, the fence
+        came from its own lineage, and the promotion's data steps run
+        again at ``epoch`` (``_promote_local``): exact catch-up from any
+        live replica ahead of us (writes a concurrently promoted peer
+        acked must survive; pulling at ``epoch`` fences that peer
+        first), the 3-node-failure guard, then a reopen as LEADER: a
+        fresh replicated db, no fence, a fresh ack window. Where the
+        guard refuses (the checkpointed seq is ahead of every live
+        replica: a dead peer held acked writes) it raises
+        TransitionError, as the promotion does. A replica fenced by
+        another leader's epoch stays fenced, and the Follower->Leader
+        transition keeps its no-live-leader check."""
+        ctx = self.ctx
+        info = ctx.admin.check_db(ctx.local_admin_addr, self.db_name)
+        if (not info or not info.get("fenced")
+                or info.get("role") != "LEADER"):
+            return False
+        me = ctx.instance.instance_id
+        if ctx.epoch_ledger(self.partition) != (int(epoch), me):
+            return False
+        ctx.log_event(self.partition, "reanoint_fenced_init",
+                      f"epoch={epoch}")
+        lock = ctx.partition_lock(self.partition)
+        if lock is None:
+            raise TransitionError(f"{self.partition}: partition lock timeout")
+        try:
+            self._promote_local(self._live_replicas(),
+                                "re-anointment abandoned", epoch=int(epoch))
+            ctx.log_event(self.partition, "reanoint_fenced_success")
+        except Exception:
+            ctx.log_event(self.partition, "reanoint_fenced_failure")
+            raise
+        finally:
+            ctx.release_partition_lock(lock)
+        return True
+
     def on_become_follower_from_leader(self) -> None:
         ctx = self.ctx
         ctx.log_event(self.partition, "leader_to_follower_init")
-        # checkpoint the final leader seq before demotion
         seq = ctx.admin.get_sequence_number(ctx.local_admin_addr, self.db_name)
-        if seq is not None:
-            ctx.set_partition_seq(self.partition, seq)
         other_leader = self._current_leader_addr()
+        if (other_leader is not None and ctx.epoch_ledger(
+                self.partition)[1] == ctx.instance.instance_id):
+            # the ledger's own leader, demoted by a two-phase handoff
+            # (a move's pin prefers another node) while a stale claimer
+            # it outlived is back and still claims: the other claim is
+            # the deposed one, and this replica's data is the lineage's.
+            # A deposed resync here would clear both copies of the
+            # lineage head (the port's repair; the reference clears)
+            ctx.log_event(self.partition, "stale_claimer_ignored",
+                          f"local_seq={seq}")
+            other_leader = None
+        # checkpoint the final leader seq before demotion — not a deposed
+        # leader's: its suffix past the lineage is un-acked, and a seq
+        # checkpointed from it would hold every replica of the lineage
+        # below the 3-node-failure guard for good (the port's repair; the
+        # reference checkpoints it)
+        if seq is not None and other_leader is None:
+            ctx.set_partition_seq(self.partition, seq)
         if other_leader is not None:
             # DEPOSED demote: another leader is already serving, so this
             # is not the demote phase of a two-phase handoff (which runs

@@ -73,23 +73,25 @@ RANKS = {
     "rocksplicator_tpu_torch/rpc/admission.py:126": ('TenantAdmission._lock', 51),
     "rocksplicator_tpu_torch/rpc/admission.py:68": ('TokenBucket._lock', 52),
     "rocksplicator_tpu_torch/storage/archive.py:64": ('WalArchiver._mutex', 53),
-    "rocksplicator_tpu_torch/testing/failpoints.py:130": ('_Site.lock', 54),
-    "rocksplicator_tpu_torch/utils/stats.py:202": ('_ThreadBuffer.lock', 55),
-    "rocksplicator_tpu_torch/kafka/broker.py:205": ('kafka.broker:_clusters_lock', 56),
-    "rocksplicator_tpu_torch/ops/_build.py:53": ('ops._build:_COUNT_LOCK', 57),
-    "rocksplicator_tpu_torch/ops/_build.py:52": ('ops._build:_LOAD_LOCK', 58),
-    "rocksplicator_tpu_torch/storage/native/binding.py:485": ('storage.native.binding:_native_lock', 59),
-    "rocksplicator_tpu_torch/testing/failpoints.py:162": ('testing.failpoints:_lock', 60),
-    "rocksplicator_tpu_torch/utils/objectstore.py:380": ('utils.objectstore:_store_cache_lock', 61),
-    "rocksplicator_tpu_torch/admin/db_manager.py:21": ('ApplicationDBManager._lock', 62),
-    "rocksplicator_tpu_torch/cluster/coordinator.py:297": ('CoordinatorServer._lock', 63),
-    "rocksplicator_tpu_torch/storage/engine.py:265": ('DB._lock', 64),
-    "rocksplicator_tpu_torch/storage/engine.py:300": ('DB._manifest_mutex', 65),
-    "rocksplicator_tpu_torch/utils/file_watcher.py:41": ('FileWatcher._instance_lock', 66),
-    "rocksplicator_tpu_torch/cluster/participant.py:76": ('Participant._state_lock', 67),
-    "rocksplicator_tpu_torch/utils/stats.py:220": ('Stats._lock', 68),
-    "rocksplicator_tpu_torch/storage/compaction_scheduler.py:125": ('IoBudget._lock', 69),
-    "rocksplicator_tpu_torch/storage/wal.py:70": ('WalWriter._sync_lock', 70),
+    "rocksplicator_tpu_torch/tools/chaos_soak.py:2159": ('_BgWriter._lock', 54),
+    "rocksplicator_tpu_torch/tools/chaos_soak.py:2880": ('_ShardWriter._lock', 55),
+    "rocksplicator_tpu_torch/testing/failpoints.py:130": ('_Site.lock', 56),
+    "rocksplicator_tpu_torch/utils/stats.py:202": ('_ThreadBuffer.lock', 57),
+    "rocksplicator_tpu_torch/kafka/broker.py:205": ('kafka.broker:_clusters_lock', 58),
+    "rocksplicator_tpu_torch/ops/_build.py:53": ('ops._build:_COUNT_LOCK', 59),
+    "rocksplicator_tpu_torch/ops/_build.py:52": ('ops._build:_LOAD_LOCK', 60),
+    "rocksplicator_tpu_torch/storage/native/binding.py:485": ('storage.native.binding:_native_lock', 61),
+    "rocksplicator_tpu_torch/testing/failpoints.py:162": ('testing.failpoints:_lock', 62),
+    "rocksplicator_tpu_torch/utils/objectstore.py:380": ('utils.objectstore:_store_cache_lock', 63),
+    "rocksplicator_tpu_torch/admin/db_manager.py:21": ('ApplicationDBManager._lock', 64),
+    "rocksplicator_tpu_torch/cluster/coordinator.py:297": ('CoordinatorServer._lock', 65),
+    "rocksplicator_tpu_torch/storage/engine.py:265": ('DB._lock', 66),
+    "rocksplicator_tpu_torch/storage/engine.py:300": ('DB._manifest_mutex', 67),
+    "rocksplicator_tpu_torch/utils/file_watcher.py:41": ('FileWatcher._instance_lock', 68),
+    "rocksplicator_tpu_torch/cluster/participant.py:76": ('Participant._state_lock', 69),
+    "rocksplicator_tpu_torch/utils/stats.py:220": ('Stats._lock', 70),
+    "rocksplicator_tpu_torch/storage/compaction_scheduler.py:125": ('IoBudget._lock', 71),
+    "rocksplicator_tpu_torch/storage/wal.py:70": ('WalWriter._sync_lock', 72),
 }
 
 # static partial order: (acquired-first, acquired-second)

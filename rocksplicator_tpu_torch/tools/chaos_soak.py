@@ -2,11 +2,8 @@
 """Seeded chaos harness: randomized failpoint schedules vs. the standing
 invariants.
 (The port's copy of ``tools/chaos_soak.py``: the data-plane deck with its
-ingest and remote-compaction fixtures, ``--failover`` and ``--cdc``, and
-the ``wal_hole``, ``meta_first``, ``remote_install``, ``mux_misroute``,
-``fencing`` and ``cdc_dedup`` teeth. The reshard and rebalance decks
-(``--reshard``, ``--rebalance``) and their ``move_flip`` and
-``split_cutover`` teeth come with the next slice; see ``ROADMAP.md``.)
+ingest and remote-compaction fixtures, ``--failover``, ``--reshard``,
+``--rebalance`` and ``--cdc``, and every tooth.)
 
 Each schedule arms 1-3 deterministic failpoints (testing/failpoints.py)
 from a seeded menu — torn frames, stuck connects, failing fsyncs,
@@ -73,6 +70,57 @@ the harness holds the **fourth standing invariant**:
    without the new epoch on the request). Bounces are always legal;
    wrong serves never are.
 
+``--reshard`` runs LIVE SHARD MOVES under fault: a 4-node /
+3-replica coordinator-backed cluster where seeded schedules drive the
+resumable move step machine (``cluster/shard_move.py``: snapshot →
+bulk-ingest → WAL-tail catch-up → epoch-bumped pinned flip → retire)
+with continuous write load riding through every phase, and kill every
+actor at every seam — the move coordinator at each of its failpoint
+phases (``move.record/snapshot/restore/catchup/flip/retire``), the
+source and target participants mid-move, the coordinator primary
+(kill + torn WAL during the flip), plus cluster-wide session expiry
+mid-catch-up and data-plane faults riding a whole move. After EVERY
+schedule the harness holds the **sixth standing invariant**:
+
+6. **live moves under fault** — exactly ONE serving lineage per shard
+   (current states, the published shard map, and the data plane agree
+   on one unfenced leader; two coexisting unfenced leaders at any
+   sampled instant is a violation), zero acked-write loss across the
+   move (every acked key readable on every CURRENT host — the hosting
+   set itself moved; plus the sharp probe: the instant a cutover
+   claims completion, every already-acked write must be readable on
+   the NEW leader), bounded convergence (controller-pass bound), and
+   no stranded replicas (a non-host still holding the db is un-swept
+   move garbage — aborts must sweep the target, retires the source).
+   A killed mover must leave the move either cleanly aborted or
+   resumable to completion — a move that can do neither is the
+   half-flipped-map state and a violation by itself.
+
+``--rebalance`` runs the AUTONOMOUS REBALANCER: a 4-node /
+2-hash-shard cluster where the harness only drives SKEWED write load —
+it never names a source, target, or split key. The policy loop
+(``cluster/rebalancer.py``) must sense the sustained hot shard from
+real per-db rates (EWMA + hysteresis + consecutive-tick sustain),
+plan, and dispatch the live move — or, past the split threshold, the
+hot-shard RANGE SPLIT (``cluster/shard_split.py``: snapshot → hidden
+observer → catch-up → paused-drain fenced cutover renaming the parent
+into range children). Schedules blip every rebalancer seam
+(``rebalance.decide/plan/dispatch`` — the tick's work re-derives from
+durable ledgers on the next tick), kill a dispatched move mid-catch-up,
+and kill the splitter AT ``split.cutover``; both must finish via
+resume. After EVERY schedule the harness holds the **seventh standing
+invariant**:
+
+7. **policy-initiated placement** — every LEAF of the split forest
+   converges (one unfenced leader per child in the current states, the
+   published map — including its ``__splits__`` routing records — and
+   the data plane), zero acked-write loss where each acked key is
+   checked on the child OWNING its range (resolved through the split
+   records exactly as the router resolves it), the split-retired
+   parent lineage gone from every node, and bounded convergence. The
+   sharp probe runs WAITLESS once converged: an acked tail lost at a
+   split cutover can never heal and must be caught, not outwaited.
+
 ``--cdc`` runs the CDC STREAMING INGEST deck (``cdc_burst``): an
 embedded broker feeds the exactly-once consumer (``kafka/ingestion.py``)
 applying into a 3-replica semi-sync group, while seeded schedules kill
@@ -96,6 +144,19 @@ invariant**:
   (``ReplicatedDB._reject_stale_epoch`` patched to a no-op): the
   stale-frame probes in the leader-crash schedule must catch it acking
   writes after deposition (SPLIT BRAIN).
+- ``move_flip`` (``--reshard`` only) — the naive cutover: no write
+  pause, no tail drain, no two-phase demote — force-promote the
+  target's data plane the moment catch-up is "close": the lineage
+  probes must catch the two coexisting serving lineages / the acked
+  tail missing on the new leader.
+- ``split_cutover`` (``--rebalance`` only) — the naive SPLIT cutover:
+  "the snapshot is good enough" — the hidden observer's WAL-tail pull
+  severed, catch-up skipped, and the paused drain-to-exact-equality
+  no-op'd before the rename. The REAL cutover refuses to flip a
+  non-drained child; the naive one renames a frozen snapshot into the
+  high child — keys at/above the split key acked after the snapshot
+  are absent from the child that owns them FOREVER: the per-child
+  acked-readability probe must catch the loss.
 - ``remote_install`` (data-plane only) — the leader installs a remote
   compaction result without the epoch gate: the remote-compaction
   fixture's deposition probe must catch a deposed leader's job
@@ -120,9 +181,10 @@ Every DB of every deck compacts on the card (``--device``, default
 PyTorch path. On the card a compaction whose direct sink fails under an
 injected fault raises where the CPU path would retry it on the tuple
 path; the engine's background loop records the failure and compacts
-again. The data-plane and CDC decks set the chaos scale (subcompaction
-slices of 256 entries, the streaming merge always on in 512-entry
-chunks) for their run only and restore the saved settings after it.
+again. The data-plane, reshard, rebalance and CDC decks set the chaos
+scale (subcompaction slices of 256 entries, the streaming merge always
+on in 512-entry chunks) for their run only and restore the saved
+settings after it.
 
 Usage::
 
@@ -134,6 +196,14 @@ Usage::
         --schedules 15 --seed 1
     python -m rocksplicator_tpu_torch.tools.chaos_soak --failover \
         --break-guard fencing --expect-violation                # tooth
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --reshard \
+        --schedules 15 --seed 1
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --reshard \
+        --break-guard move_flip --expect-violation              # tooth
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --rebalance \
+        --schedules 3 --seed 1
+    python -m rocksplicator_tpu_torch.tools.chaos_soak --rebalance \
+        --break-guard split_cutover --expect-violation          # tooth
     python -m rocksplicator_tpu_torch.tools.chaos_soak --cdc \
         --schedules 5 --seed 1
     python -m rocksplicator_tpu_torch.tools.chaos_soak --cdc \
@@ -804,6 +874,10 @@ FAILOVER_FLAGS = ReplicationFlags(
 # "shard-map convergence within a bounded number of controller passes":
 # the reconcile loop runs every 0.25 s, so this bound also caps heal time
 FAILOVER_PASS_BOUND = 80
+# reshard heals ride a longer window (deposed resync + drops + rejoin
+# storms settle through MORE passes, at the same 0.25 s cadence): the
+# bound scales with the 30 s heal timeout the reshard checks use
+RESHARD_PASS_BOUND = 160
 _LEADERLIKE = {"LEADER", "MASTER"}
 
 
@@ -1038,14 +1112,25 @@ class FailoverCluster:
         return errors
 
     def stop(self) -> None:
-        for closer in (self.spectator.stop, self.controller.stop,
-                       self.client.close, self.admin.close):
+        # the spectator, the controller and the nodes stop side by side:
+        # the spectator and each participant wait out a poll interval,
+        # about 9 s in series a cluster (the port's difference; the
+        # reference stops them one by one)
+        def quietly(stop):
             try:
-                closer()
+                stop()
             except Exception:
                 pass
-        for n in self.nodes:
-            n.stop()
+
+        stoppers = [threading.Thread(target=quietly, args=(f,))
+                    for f in [self.spectator.stop, self.controller.stop]
+                    + [n.stop for n in self.nodes]]
+        for t in stoppers:
+            t.start()
+        for t in stoppers:
+            t.join()
+        for closer in (self.client.close, self.admin.close):
+            quietly(closer)
         try:
             self._ioloop.run_sync(self._pool.close(), timeout=5)
         except Exception:
@@ -1097,6 +1182,73 @@ def _break_guard(kind: str):
 
         AdminHandler._do_ingest = broken_do
         return lambda: setattr(AdminHandler, "_do_ingest", orig_do)
+    if kind == "move_flip":
+        # the naive shard-move cutover a lazy implementation would ship:
+        # no write pause, no tail drain, no two-phase handoff — just
+        # bump the ledger and force-promote the target's data plane the
+        # moment catch-up is "close enough". This leaves TWO unfenced
+        # serving lineages (the source still leads its follower set;
+        # the target leads alone at a higher epoch, missing the acked
+        # tail) — the sixth invariant's lineage probes must catch it.
+        import json as _json
+
+        from rocksplicator_tpu_torch.cluster.model import cluster_path
+        from rocksplicator_tpu_torch.cluster.shard_move import ShardMove
+
+        orig_cutover = ShardMove._phase_cutover
+
+        def broken_cutover(self):
+            rec = self.rec
+            rec.moving_leader = True
+            target = self._target_info()
+            path = cluster_path(self.cluster, "epochs", rec.partition)
+            raw = self.coord.get_or_none(path)
+            cur = 0
+            if raw:
+                try:
+                    cur = int(_json.loads(bytes(raw).decode())
+                              .get("epoch", 0))
+                except (ValueError, UnicodeDecodeError):
+                    cur = 0
+            self.coord.put(path, _json.dumps(
+                {"epoch": cur + 1, "leader": rec.target}).encode())
+            self.admin.change_db_role_and_upstream(
+                self._admin_addr(target), rec.db_name, "LEADER",
+                epoch=cur + 1)
+
+        ShardMove._phase_cutover = broken_cutover
+        return lambda: setattr(
+            ShardMove, "_phase_cutover", orig_cutover)
+    if kind == "split_cutover":
+        # the naive split cutover: "the snapshot is good enough" — the
+        # hidden observer's WAL-tail pull severed (self-upstream), the
+        # catch-up wait skipped, the paused drain-to-exact-equality
+        # no-op'd. The REAL cutover refuses to flip a non-drained child
+        # (the drain polls lag==0 under the pause and times out); the
+        # naive one renames a frozen snapshot into the high child, so
+        # every key >= split_key acked after the snapshot seq is absent
+        # from the child that now OWNS it — the rebalance harness's
+        # per-child acked-readability probe must catch the loss.
+        from rocksplicator_tpu_torch.cluster.shard_split import ShardSplit
+
+        orig_catchup = ShardSplit._phase_catchup
+        orig_drain = ShardSplit._cutover_drain
+
+        def naive_catchup(self):
+            target = self._instances().get(self.rec.target_instance)
+            if target is not None:
+                self.admin.change_db_role_and_upstream(
+                    self._admin_addr(target), self.parent_db, "OBSERVER",
+                    upstream=(target.host, target.repl_port))
+
+        ShardSplit._phase_catchup = naive_catchup
+        ShardSplit._cutover_drain = lambda self, leader: None
+
+        def undo():
+            ShardSplit._phase_catchup = orig_catchup
+            ShardSplit._cutover_drain = orig_drain
+
+        return undo
     if kind == "remote_install":
         # a leader that installs a remote compaction result WITHOUT the
         # epoch gate: a deposed leader's in-flight job comes back and
@@ -1942,6 +2094,1314 @@ def run_failover_chaos(
 
 
 # ---------------------------------------------------------------------------
+# the reshard deck: live shard moves under fault
+# ---------------------------------------------------------------------------
+
+# the move step machine's failpoint seams: arming fail_nth on one IS the
+# "kill the move coordinator at this phase" schedule (registration
+# asserted by tests like the other menus)
+_RESHARD_FAULT_SITES = [
+    "move.record", "move.snapshot", "move.restore", "move.catchup",
+    "move.flip", "move.retire",
+    "coordinator.heartbeat", "coordinator.wal.append", "repl.pull",
+    "rpc.frame.send",
+]
+
+# every actor × phase: the mover killed at each of its five seams (+ the
+# ledger-write seam), the source/target participants killed mid-move,
+# cluster-wide session expiry, the coordinator torn/killed, a data-plane
+# fault riding the whole move, plus clean leader/follower moves and a
+# whole-node drain
+_RESHARD_KINDS = [
+    "move_clean_leader", "move_clean_follower", "move_drain",
+    "move_crash_record", "move_crash_snapshot", "move_crash_restore",
+    "move_crash_catchup", "move_crash_flip", "move_crash_retire",
+    "move_kill_source", "move_kill_target", "move_session_expiry",
+    "move_coord_torn", "move_coord_failover", "move_fault_dataplane",
+]
+
+
+def _move_flags():
+    """Chaos-sized move pacing: many move→fault→heal cycles per minute."""
+    from rocksplicator_tpu_torch.cluster.shard_move import MoveFlags
+
+    return MoveFlags(
+        catchup_lag_threshold=16, catchup_timeout=40.0,
+        cutover_pause_ms=4000.0, cutover_attempts=3,
+        flip_timeout=25.0, retire_timeout=25.0,
+        poll_interval=0.05, record_update_interval=0.25,
+    )
+
+
+class _BgWriter:
+    """Continuous write load riding THROUGH every move phase — the acked
+    ledger the zero-loss-across-the-move invariant is checked against.
+    Writes go to whichever node currently claims leadership; errors
+    (WRITE_PAUSED during cutover, NOT_LEADER mid-flip, no leader) are
+    expected and counted, never acked."""
+
+    def __init__(self, cluster: FailoverCluster, tag: str,
+                 interval: float = 0.02):
+        self.cluster = cluster
+        self.tag = tag
+        self.interval = interval
+        self.errors = 0
+        self.window_acked = 0
+        # participant-kill / session-expiry schedules flip this ON at
+        # the kill: from that instant leadership may churn with a
+        # deposed-but-uninformed leader still granting acks — the
+        # documented semi-sync visibility-window residual. Writes
+        # SUBMITTED while the window is open are counted but not held
+        # to the strict ledger (exactly the failover deck's session-expiry
+        # accounting); pre-kill acks stay strict.
+        self.window_mode = False
+        self._waiters: List = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="chaos-move-writer", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        partition = self.cluster.partitions[0]
+        db = self.cluster.db_names[0]
+        i = 0
+        while not self._stop.wait(self.interval):
+            i += 1
+            key = f"{self.tag}-bg{i:05d}".encode()
+            node = self.cluster.leader_node(partition)
+            app = (node.handler.db_manager.get_db(db)
+                   if node is not None else None)
+            if app is None:
+                self.errors += 1
+                continue
+            strict = not self.window_mode
+            try:
+                w = app.write_async(WriteBatch().put(key, key))
+            except Exception:
+                self.errors += 1
+                continue
+            with self._lock:
+                self._waiters.append((key, key, w, strict))
+
+    def _collect_one(self, item, acked) -> None:
+        key, val, w, strict = item
+        if not w.acked:
+            return
+        if strict:
+            acked.append((key, val))
+        else:
+            self.window_acked += 1
+
+    def harvest(self, acked: List[Tuple[bytes, bytes]]) -> None:
+        """Move already-resolved acks into the ledger NOW — the sharp
+        post-flip probes check against writes acked before the flip."""
+        with self._lock:
+            pending = []
+            for item in self._waiters:
+                if item[2].future.done():
+                    self._collect_one(item, acked)
+                else:
+                    pending.append(item)
+            self._waiters = pending
+
+    def stop_collect(self, acked: List[Tuple[bytes, bytes]]) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        with self._lock:
+            waiters, self._waiters = self._waiters, []
+        for item in waiters:
+            try:
+                item[2].future.result(3.0)
+            except Exception:
+                continue
+            self._collect_one(item, acked)
+
+
+def _start_move_bg(cluster: FailoverCluster, source_iid: str,
+                   target_iid: str, flags) -> Dict:
+    """Run one coordinated move in a background thread (the 'move
+    coordinator' actor the schedules kill) against the harness's shared
+    coordinator/admin clients."""
+    from rocksplicator_tpu_torch.cluster.shard_move import ShardMove
+
+    box: Dict = {"mover": None, "error": None, "record": None,
+                 "done": threading.Event()}
+    partition = cluster.partitions[0]
+
+    def go():
+        try:
+            mv = ShardMove.start(
+                cluster.client, cluster.cluster, partition, source_iid,
+                target_iid, cluster.store_uri, admin=cluster.admin,
+                flags=flags)
+            box["mover"] = mv
+            box["record"] = mv.run()
+        except BaseException as e:
+            box["error"] = e
+        finally:
+            box["done"].set()
+
+    t = threading.Thread(target=go, name="chaos-mover", daemon=True)
+    t.start()
+    box["thread"] = t
+    return box
+
+
+def _start_drain_bg(cluster: FailoverCluster, node, flags) -> Dict:
+    from rocksplicator_tpu_torch.cluster.shard_move import drain_node
+
+    box: Dict = {"mover": None, "error": None, "record": None,
+                 "done": threading.Event()}
+
+    def go():
+        try:
+            box["record"] = drain_node(
+                cluster.client, cluster.cluster,
+                node.instance.instance_id, cluster.store_uri,
+                admin=cluster.admin, flags=flags,
+                log_fn=lambda *_a, **_k: None)
+        except BaseException as e:
+            box["error"] = e
+        finally:
+            box["done"].set()
+
+    t = threading.Thread(target=go, name="chaos-drainer", daemon=True)
+    t.start()
+    box["thread"] = t
+    return box
+
+
+def _wait_move_phase(box: Dict, phase: str, timeout: float = 30.0) -> bool:
+    """Wait until the mover has ENTERED ``phase`` (or finished/crashed —
+    both mean the seam was passed or will never be reached)."""
+    from rocksplicator_tpu_torch.cluster.shard_move import PHASES
+
+    order = {p: i for i, p in enumerate(PHASES)}
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if box["done"].is_set():
+            return True
+        mv = box.get("mover")
+        if mv is not None and order.get(mv.rec.phase, -1) >= order[phase]:
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def _finish_move(cluster: FailoverCluster, box: Dict, rng: random.Random,
+                 tag: str, violations: List[str], flags,
+                 timeout: float = 90.0) -> str:
+    """Drive the move to a TERMINAL state: completed as launched, or —
+    after a crash — either resumed to completion or cleanly aborted
+    (seeded choice where both are legal). A move that can do neither is
+    the 'half-flipped map' state the step machine exists to prevent:
+    a violation."""
+    from rocksplicator_tpu_torch.cluster.model import cluster_path
+    from rocksplicator_tpu_torch.cluster.shard_move import MoveRecord, \
+        ShardMove
+
+    if not box["done"].wait(timeout):
+        violations.append(f"{tag}: move wedged (no exit in {timeout}s)")
+        return "wedged"
+    partition = cluster.partitions[0]
+    if box["error"] is None:
+        return "completed"
+    raw = cluster.client.get_or_none(
+        cluster_path(cluster.cluster, "moves", partition))
+    if raw is None:
+        # crashed before the ledger write landed (or after the final
+        # delete): nothing half-done exists to resume
+        return "no_record"
+    rec = MoveRecord.decode(raw)
+    abortable = rec.phase in ("planned", "snapshot", "restore", "catchup")
+    if abortable and rng.random() < 0.5:
+        try:
+            ShardMove.resume(cluster.client, cluster.cluster, partition,
+                             admin=cluster.admin, flags=flags).abort()
+            return "aborted"
+        except Exception as e:
+            violations.append(
+                f"{tag}: ABORT FAILED from phase {rec.phase}: {e!r}")
+            return "abort_failed"
+    last: Optional[BaseException] = None
+    for _attempt in range(2):
+        try:
+            ShardMove.resume(cluster.client, cluster.cluster, partition,
+                             admin=cluster.admin, flags=flags).run()
+            return "resumed"
+        except Exception as e:
+            last = e
+            time.sleep(0.5)
+    violations.append(
+        f"{tag}: RESUME FAILED from phase {rec.phase} (half-flipped "
+        f"state left behind): {last!r}")
+    return "resume_failed"
+
+
+def _probe_serving_lineages(cluster: FailoverCluster, tag: str,
+                            violations: List[str],
+                            duration: float = 1.5) -> None:
+    """Sharp lineage check sampled across the flip window: at NO instant
+    may two unfenced data-plane LEADERs coexist — the pinned two-phase
+    flip demotes the source before the target may promote, and the
+    ``move_flip`` tooth (force-promote without drain/demote) is exactly
+    what this catches."""
+    db = cluster.db_names[0]
+    deadline = time.monotonic() + duration
+    while time.monotonic() < deadline:
+        leaders = []
+        for n in cluster.nodes:
+            rdb = n.rdb(db)
+            if (rdb is not None and rdb.role is ReplicaRole.LEADER
+                    and not rdb.fenced and not rdb.removed):
+                leaders.append(n.name)
+        if len(leaders) > 1:
+            violations.append(
+                f"{tag}: TWO SERVING LINEAGES — unfenced leaders "
+                f"{leaders} coexist (flip before demote)")
+            return
+        time.sleep(0.03)
+
+
+def _probe_new_lineage(cluster: FailoverCluster, box: Dict,
+                       acked: List[Tuple[bytes, bytes]], tag: str,
+                       violations: List[str]) -> None:
+    """The moment the cutover claims completion (phase → retire), every
+    write acked so far must be readable on the NEW leader — a flip that
+    beat catch-up shows up here as a hole in the acked ledger."""
+    mv = box.get("mover")
+    if mv is None or not mv.rec.moving_leader:
+        return
+    node = next((n for n in cluster.nodes
+                 if n.instance.instance_id == mv.rec.target), None)
+    if node is None:
+        return
+    db = cluster.db_names[0]
+    deadline = time.monotonic() + 2.0
+    app = None
+    while time.monotonic() < deadline and app is None:
+        app = node.handler.db_manager.get_db(db)
+        if app is None:
+            time.sleep(0.05)
+    if app is None:
+        return  # mid-reopen; the post-schedule invariant check covers it
+    for key, val in list(acked)[-20:]:
+        try:
+            got = app.db.get(key)
+        except Exception:
+            return
+        if got != val:
+            violations.append(
+                f"{tag}: ACKED WRITE {key!r} MISSING ON NEW LINEAGE "
+                f"{mv.rec.target} (flip before catch-up completed)")
+            return
+
+
+def _reshard_schedule(kind: str):
+    def run(cluster: FailoverCluster, rng: random.Random, acked,
+            violations: List[str], tag: str, timings: Dict) -> None:
+        from rocksplicator_tpu_torch.cluster.model import cluster_path
+
+        partition = cluster.partitions[0]
+        cluster.write_some(rng, tag + "-pre", rng.randint(4, 8), acked)
+        # generous window: the PREVIOUS schedule's healed participants
+        # (rejoins, deposed resyncs, late drops) may still be settling
+        if not _wait_replicas_equal(cluster, timeout=25.0):
+            violations.append(f"{tag}: baseline never converged")
+            return
+        move_leader = kind != "move_clean_follower"
+        leader = cluster.leader_node(partition)
+        followers = [n for n in cluster.nodes
+                     if n.state_of(partition) in ("FOLLOWER", "SLAVE")]
+        free = [n for n in cluster.nodes if not n.state_of(partition)]
+        if leader is None or not free or (
+                not move_leader and not followers):
+            violations.append(f"{tag}: no legal move endpoints "
+                              f"({cluster.states(partition)})")
+            return
+        source = leader if move_leader else rng.choice(followers)
+        target = rng.choice(free)
+        flags = _move_flags()
+        writer = _BgWriter(cluster, tag)
+        healers: List[FailoverNode] = []
+        t0 = time.monotonic()
+        outcome = "?"
+        try:
+            if kind == "move_coord_torn":
+                # the flip's durable writes (move ledger, pin, epoch)
+                # hit a torn coordinator WAL: the primary fail-stops and
+                # the mover's mutation dies mid-flight
+                fp.activate(
+                    "coordinator.wal.append",
+                    f"torn:1.0@seed{rng.randrange(1 << 16)},one_shot")
+            crash_site = {
+                "move_crash_record": ("move.record", "fail_nth:2"),
+                "move_crash_snapshot": ("move.snapshot", "fail_nth:1"),
+                "move_crash_restore": ("move.restore", "fail_nth:1"),
+                "move_crash_catchup": ("move.catchup", "fail_nth:1"),
+                "move_crash_flip": ("move.flip", "fail_nth:1"),
+                "move_crash_retire": ("move.retire", "fail_nth:1"),
+            }.get(kind)
+            if crash_site:
+                fp.activate(*crash_site)
+            if kind == "move_fault_dataplane":
+                s = rng.randrange(1 << 16)
+                fp.activate(
+                    rng.choice(["repl.pull", "rpc.frame.send"]),
+                    f"fail_prob:{rng.uniform(0.03, 0.10):.3f}@seed{s}")
+            if kind == "move_drain":
+                box = _start_drain_bg(cluster, source, flags)
+            else:
+                box = _start_move_bg(
+                    cluster, source.instance.instance_id,
+                    target.instance.instance_id, flags)
+            if kind == "move_kill_source":
+                if _wait_move_phase(box, "catchup"):
+                    # from here leadership may churn with deposed-but-
+                    # uninformed claimers: acks ride the documented
+                    # visibility window, not the strict ledger
+                    writer.window_mode = True
+                    source.participant.coord.suspend_heartbeats()
+                    healers.append(source)
+            elif kind == "move_kill_target":
+                if _wait_move_phase(box,
+                                    rng.choice(["restore", "catchup"])):
+                    writer.window_mode = True
+                    target.participant.coord.suspend_heartbeats()
+                    healers.append(target)
+            elif kind == "move_session_expiry":
+                if _wait_move_phase(
+                        box, rng.choice(["snapshot", "restore",
+                                         "catchup"])):
+                    writer.window_mode = True
+                    fp.activate("coordinator.heartbeat",
+                                f"fail_first:{rng.randint(25, 45)}")
+                    time.sleep(FAILOVER_SESSION_TTL * 1.7)
+                    fp.deactivate("coordinator.heartbeat")
+            elif kind == "move_coord_failover":
+                if _wait_move_phase(box,
+                                    rng.choice(["restore", "catchup"])):
+                    _coordinator_failover(cluster, tag, violations)
+            # sharp flip-window probes — only where every participant
+            # stays responsive, so the two-phase demote-before-promote
+            # discipline is actually observable: under participant
+            # kills / session expiry / coordinator faults a wedged
+            # deposed leader legitimately lingers as an unfenced zombie
+            # (the documented failover state — it cannot ACK and cannot
+            # serve lineage-valid reads, which invariants 4/5 check;
+            # it fences on first contact)
+            probing = kind in (
+                "move_clean_leader", "move_clean_follower", "move_drain",
+                "move_crash_record", "move_crash_snapshot",
+                "move_crash_restore", "move_crash_catchup",
+                "move_crash_flip", "move_crash_retire",
+                "move_fault_dataplane")
+            if probing and _wait_move_phase(box, "retire", timeout=60.0):
+                writer.harvest(acked)
+                _probe_serving_lineages(cluster, tag, violations)
+                _probe_new_lineage(cluster, box, acked, tag, violations)
+            if violations and timings.get("fast_fail"):
+                # teeth run: the broken guard is caught — don't spend a
+                # minute trying to recover a deliberately-broken flip
+                return
+            if crash_site:
+                fp.deactivate(crash_site[0])
+            if kind == "move_coord_torn":
+                # the tear fail-stopped a coordinator (the mover's
+                # ledger write died with it): heal the control plane
+                # BEFORE terminal recovery, exactly like the failover deck's
+                # coordinator_wal_torn schedule
+                box["done"].wait(30.0)
+                fp.deactivate("coordinator.wal.append")
+                primary_fenced = (cluster.primary._wal is not None
+                                  and cluster.primary._wal.failed
+                                  is not None)
+                standby_fenced = (cluster.standby._wal is not None
+                                  and cluster.standby._wal.failed
+                                  is not None)
+                if primary_fenced:
+                    _coordinator_failover(cluster, tag, violations)
+                elif standby_fenced:
+                    from rocksplicator_tpu_torch.cluster.coordinator import \
+                        CoordinatorServer
+
+                    cluster.standby.stop()
+                    cluster.standby = CoordinatorServer(
+                        port=0, session_ttl=FAILOVER_SESSION_TTL,
+                        data_dir=cluster._coord_dir(),
+                        replica_of=("127.0.0.1", cluster.primary.port))
+            # a killed participant must heal BEFORE terminal recovery:
+            # resume/abort legitimately need its admin plane back
+            if healers:
+                box["done"].wait(60.0)
+                for n in healers:
+                    n.participant.coord.resume_heartbeats()
+                for n in healers:
+                    node_path = cluster_path(
+                        cluster.cluster, "instances",
+                        n.instance.instance_id)
+                    cluster.wait(
+                        lambda: cluster.client.exists(node_path), 10.0)
+                healers.clear()
+            outcome = _finish_move(cluster, box, rng, tag, violations,
+                                   flags)
+            if probing and outcome in ("completed", "resumed"):
+                _probe_serving_lineages(cluster, tag, violations,
+                                        duration=0.5)
+        finally:
+            for n in healers:
+                n.participant.coord.resume_heartbeats()
+            fp.clear()
+            writer.stop_collect(acked)
+        timings["move_outcomes"][outcome] = \
+            timings["move_outcomes"].get(outcome, 0) + 1
+        timings["move_ms"].append(
+            round((time.monotonic() - t0) * 1000.0, 1))
+        timings["write_errors"] += writer.errors
+        timings["window_acked"] += writer.window_acked
+
+    return run
+
+
+def _reshard_deck(rng: random.Random, schedules: int,
+                  break_guard: Optional[str]) -> List[str]:
+    """Every kind at least once when the run is long enough; the
+    move_flip tooth leads with the clean leader move it breaks."""
+    deck: List[str] = []
+    if break_guard == "move_flip":
+        deck.append("move_clean_leader")
+    core = list(_RESHARD_KINDS)
+    rng.shuffle(core)
+    deck.extend(core[:max(0, schedules - len(deck))])
+    while len(deck) < schedules:
+        deck.append(rng.choice(_RESHARD_KINDS))
+    return deck[:schedules]
+
+
+def _check_reshard_invariants(cluster: FailoverCluster, acked, tag: str,
+                              violations: List[str],
+                              timeout: float = 30.0) -> int:
+    """The SIXTH standing invariant, after EVERY reshard schedule:
+    exactly one serving lineage per shard (current states, the
+    published map, AND the data plane agree on one unfenced leader),
+    zero acked-write loss across the move (every acked key readable on
+    every CURRENT host — the hosting set itself may have moved), no
+    stranded replicas (a non-host holding the db = un-swept move
+    garbage), and convergence within the controller-pass bound."""
+    partition, db = cluster.partitions[0], cluster.db_names[0]
+    passes0 = cluster.controller.passes
+    detail: Dict = {}
+
+    def healthy():
+        from rocksplicator_tpu_torch.storage.errors import StorageError
+
+        hosts = [n for n in cluster.nodes if n.state_of(partition)]
+        states = sorted(n.state_of(partition) for n in hosts)
+        if states != ["FOLLOWER", "FOLLOWER", "LEADER"]:
+            detail["states"] = cluster.states(partition)
+            return False
+        seqs = []
+        apps = {}
+        try:
+            for n in hosts:
+                app = n.handler.db_manager.get_db(db)
+                if app is None:
+                    detail["lost"] = (n.name, "db closed")
+                    return False
+                apps[n.name] = app
+                seqs.append(app.db.latest_sequence_number_relaxed())
+            if len(set(seqs)) != 1:
+                detail["seqs"] = seqs
+                return False
+            host_names = {n.name for n in hosts}
+            for n in cluster.nodes:
+                if n.name not in host_names and \
+                        n.handler.db_manager.get_db(db) is not None:
+                    detail["garbage"] = n.name  # un-swept move replica
+                    return False
+            for n in hosts:
+                app = apps[n.name]
+                for key, val in acked:
+                    if app.db.get(key) != val:
+                        detail["lost"] = (n.name, key)
+                        return False
+        except StorageError as e:
+            # a handle we resolved raced a reopen (repoint/rejoin
+            # transition mid-sample): not healthy YET, re-sample
+            detail["transition"] = repr(e)
+            return False
+        if not cluster.maps:
+            detail["map"] = "never published"
+            return False
+        seg = cluster.maps[-1].get(cluster.segment) or {}
+        for s in range(cluster.num_shards):
+            mark = f"{s:05d}:M"
+            leaders = sum(
+                1 for host, entries in seg.items()
+                if host != "num_shards" for e in entries if e == mark)
+            if leaders != 1:
+                detail["map"] = f"shard {s}: {leaders} leaders in map"
+                return False
+        dp_leaders = []
+        for n in cluster.nodes:
+            rdb = n.rdb(db)
+            if (rdb is not None and rdb.role is ReplicaRole.LEADER
+                    and not rdb.fenced and not rdb.removed):
+                dp_leaders.append(n.name)
+        if len(dp_leaders) != 1:
+            detail["lineages"] = dp_leaders
+            return False
+        return True
+
+    def stable_healthy():
+        # a rejoining participant can look healthy for an instant while
+        # its re-applied assignment is about to reopen a db — require
+        # the state to hold across a short window
+        if not healthy():
+            return False
+        time.sleep(0.35)
+        return healthy()
+
+    ok = cluster.wait(stable_healthy, timeout)
+    passes = cluster.controller.passes - passes0
+    if not ok:
+        violations.append(
+            f"{tag}: NO HEAL within {timeout}s / {passes} controller "
+            f"passes — {detail}")
+    elif passes > RESHARD_PASS_BOUND:
+        violations.append(
+            f"{tag}: healed but took {passes} controller passes "
+            f"(bound {RESHARD_PASS_BOUND})")
+    return passes
+
+
+def run_reshard_chaos(
+    root: str,
+    schedules: int = 15,
+    seed: int = 1,
+    break_guard: Optional[str] = None,
+    heal_timeout: float = 30.0,
+    log=print,
+    device=None,
+) -> Dict:
+    """Live shard moves under fault: seeded schedules kill the move
+    coordinator at every step-machine seam, kill the source/target
+    participants mid-move, tear the coordinator WAL during the flip,
+    and expire sessions mid-catch-up — holding the SIXTH standing
+    invariant after every schedule, with continuous write load riding
+    through every move. The four nodes compact on ``device`` (None
+    means ``cuda``; raises without CUDA) at the chaos scale
+    (``_chaos_scale``)."""
+    resolve_device(device)
+    with _chaos_scale():
+        return _run_reshard_deck(root, schedules, seed, break_guard,
+                                 heal_timeout, log, device)
+
+
+def _run_reshard_deck(root, schedules, seed, break_guard, heal_timeout,
+                      log, device) -> Dict:
+    saved_env = {
+        k: os.environ.get(k)
+        for k in ("RSTPU_RETRY_SEED", "RSTPU_PULL_RETRY_SEED")
+    }
+    os.environ["RSTPU_RETRY_SEED"] = str(seed)
+    os.environ["RSTPU_PULL_RETRY_SEED"] = str(seed)
+    undo = _break_guard(break_guard) if break_guard else None
+    violations: List[str] = []
+    acked: List[Tuple[bytes, bytes]] = []
+    timings: Dict = {"move_ms": [], "move_outcomes": {},
+                     "passes_used": [], "write_errors": 0,
+                     "window_acked": 0,
+                     "reads_checked": 0, "reads_served": 0,
+                     "read_bounces": 0,
+                     "fast_fail": bool(break_guard)}
+    gauge_snapshots: List[Dict] = []
+    fp.clear()
+    t_setup = time.monotonic()
+    cluster = FailoverCluster(root, num_nodes=4, device=device)
+    deck: List[str] = []
+    try:
+        cluster.wait_initial_convergence()
+        setup_sec = round(time.monotonic() - t_setup, 1)
+        deck = _reshard_deck(random.Random(seed), schedules, break_guard)
+        log(f"  cluster up in {setup_sec}s (4 nodes / 3 replicas); "
+            f"deck: {deck}")
+        for si, kind in enumerate(deck):
+            rng = random.Random(seed * 1_000_003 + si)
+            tag = f"s{si:02d}-{kind}/seed {seed}"
+            try:
+                _reshard_schedule(kind)(
+                    cluster, rng, acked, violations, tag, timings)
+            finally:
+                fp.clear()
+            if violations and break_guard:
+                break  # teeth demonstrated — skip the 30 s heal wait
+            timings["passes_used"].append(
+                _check_reshard_invariants(cluster, acked, tag, violations,
+                                          timeout=heal_timeout))
+            _check_read_invariants(cluster, acked, tag, violations,
+                                   timings)
+            gauge_snapshots.append(_gauge_snapshot(tag))
+            log(f"  [{si + 1}/{len(deck)}] {kind}: acked={len(acked)} "
+                f"moves={timings['move_outcomes']} "
+                f"violations={len(violations)}")
+            if violations and break_guard:
+                break
+    finally:
+        fp.clear()
+        if undo:
+            undo()
+        cluster.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def _med(xs):
+        return round(sorted(xs)[len(xs) // 2], 1) if xs else None
+
+    return {
+        "mode": "reshard",
+        "schedules": len(deck),
+        "deck": deck,
+        "seed": seed,
+        "acked": len(acked),
+        "window_acked": timings["window_acked"],
+        "write_errors": timings["write_errors"],
+        "violations": violations,
+        "move_outcomes": timings["move_outcomes"],
+        "move_ms": timings["move_ms"],
+        "move_ms_median": _med(timings["move_ms"]),
+        "passes_used": timings["passes_used"],
+        "reads_checked": timings["reads_checked"],
+        "reads_served": timings["reads_served"],
+        "read_bounces": timings["read_bounces"],
+        "gauge_snapshots": gauge_snapshots,
+        "failpoint_trips": fp.trip_counts(),
+        "break_guard": break_guard,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the rebalance deck: the POLICY decides — the harness only
+# drives skewed load and checks the aftermath
+# ---------------------------------------------------------------------------
+
+# 2 policy-initiated moves + 1 policy-initiated split per 3-schedule
+# smoke: the harness never names a source/target/split key — it offers
+# a hot shard and the rebalancer's sense→decide→plan→dispatch loop does
+# the rest (the faulted variant blips every rebalancer seam —
+# "rebalance.decide" / "rebalance.plan" / "rebalance.dispatch" — plus
+# the dispatched move's catch-up, and the split schedule kills the
+# splitter AT "split.cutover"; both must recover via resume)
+_REBALANCE_KINDS = [
+    "rebalance_move_hot", "rebalance_split_hot", "rebalance_move_faulted",
+]
+
+
+def _rebalance_flags(split: bool):
+    """Chaos-sized policy knobs: fast EWMA, 2-tick sustain, thresholds
+    scaled to a 2-shard fleet (with N=2 the reference hot_factor=2.0 is
+    unreachable — hot > 2x mean needs hot > hot + cold)."""
+    from rocksplicator_tpu_torch.cluster.rebalancer import RebalancerFlags
+
+    return RebalancerFlags(
+        interval=0.0, ewma_alpha=0.7, hot_factor=1.2, cool_factor=1.05,
+        sustain=2, max_concurrent=1,
+        split_factor=(1.5 if split else 100.0), min_rate=2.0)
+
+
+class _SeqRateLoad:
+    """db_name -> write rate measured from the data plane's OWN sequence
+    numbers (per-db max across nodes, delta over wall time). The
+    rebalancer's production load_fn scrapes /cluster_stats; the chaos
+    cluster runs no status servers, so the harness feeds the policy the
+    same signal from the source those rates are derived from — real
+    load, never a synthesized number."""
+
+    def __init__(self, cluster: FailoverCluster):
+        self.cluster = cluster
+        self._prev: Dict[str, Tuple[int, float]] = {}
+
+    def __call__(self) -> Optional[Dict[str, float]]:
+        from rocksplicator_tpu_torch.utils.segment_utils import \
+            partition_name_to_db_name
+
+        now = time.monotonic()
+        dbs = set()
+        for n in self.cluster.nodes:
+            for partition, st in list(
+                    n.participant.current_states.items()):
+                if st in ("LEADER", "MASTER", "FOLLOWER", "SLAVE"):
+                    dbs.add(partition_name_to_db_name(partition))
+        rates: Dict[str, float] = {}
+        for db in dbs:
+            seqs = [s for s in self.cluster.seqs(db) if s is not None]
+            if not seqs:
+                continue
+            seq = max(seqs)
+            prev = self._prev.get(db)
+            self._prev[db] = (seq, now)
+            if prev is None:
+                continue  # first sighting (fresh split child): no rate
+            rates[db] = max(0.0, (seq - prev[0]) / max(1e-3,
+                                                       now - prev[1]))
+        for db in list(self._prev):
+            if db not in dbs:
+                del self._prev[db]  # renamed away mid-split / retired
+        return rates or None
+
+
+class _ShardWriter:
+    """Write load aimed at ONE partition's current leader — the hot (or
+    cold) side of the skew the policy observes. Acked (key, val) pairs
+    land in a per-hash-shard ledger; after a split the checker resolves
+    each key to its OWNING child by range, so the acked-readability
+    probe follows the keys across the cutover."""
+
+    def __init__(self, cluster: FailoverCluster, shard: int, tag: str,
+                 interval: float, acked_by_shard: Dict[int, List],
+                 prefix: bytes = b"k"):
+        from rocksplicator_tpu_torch.utils.segment_utils import (
+            db_name_to_partition_name, segment_to_db_name)
+
+        self.cluster = cluster
+        self.shard = shard
+        self.db = segment_to_db_name(cluster.segment, shard)
+        self.partition = db_name_to_partition_name(self.db)
+        self.tag = tag
+        self.interval = interval
+        self.prefix = prefix
+        self.errors = 0
+        self._ledger = acked_by_shard.setdefault(shard, [])
+        self._waiters: List = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name=f"chaos-rebalance-writer-{shard}",
+            daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        i = 0
+        while not self._stop.wait(self.interval):
+            i += 1
+            key = self.prefix + (b"%s-%05d" % (self.tag.encode(), i))
+            node = self.cluster.leader_node(self.partition)
+            app = (node.handler.db_manager.get_db(self.db)
+                   if node is not None else None)
+            if app is None:
+                self.errors += 1  # paused / renamed mid-split: expected
+                continue
+            try:
+                w = app.write_async(WriteBatch().put(key, key))
+            except Exception:
+                self.errors += 1
+                continue
+            with self._lock:
+                self._waiters.append((key, w))
+
+    def stop_collect(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        with self._lock:
+            waiters, self._waiters = self._waiters, []
+        for key, w in waiters:
+            try:
+                w.future.result(3.0)
+            except Exception:
+                continue
+            if w.acked:
+                self._ledger.append((key, key))
+
+
+def _split_leaves(cluster: FailoverCluster) -> List[int]:
+    """The serving frontier: every hash slot chased through ACTIVE
+    split records to its leaf children (the controller's
+    effective_shards over the live ledger)."""
+    from rocksplicator_tpu_torch.cluster.shard_split import list_splits
+
+    by_parent = {
+        r.parent_shard: r
+        for r in list_splits(cluster.client, cluster.cluster)
+        if r.segment == cluster.segment and r.phase == "active"}
+    leaves: List[int] = []
+
+    def chase(s: int) -> None:
+        r = by_parent.get(s)
+        if r is None:
+            leaves.append(s)
+        else:
+            chase(r.low_shard)
+            chase(r.high_shard)
+
+    for s in range(cluster.num_shards):
+        chase(s)
+    return leaves
+
+
+def _owning_leaf(cluster: FailoverCluster, shard: int, key: bytes) -> int:
+    """Which leaf serves ``key`` under hash slot ``shard`` — the same
+    transitive range chase the router runs."""
+    from rocksplicator_tpu_torch.cluster.shard_split import list_splits
+
+    by_parent = {
+        r.parent_shard: r
+        for r in list_splits(cluster.client, cluster.cluster)
+        if r.segment == cluster.segment and r.phase == "active"}
+    while shard in by_parent:
+        r = by_parent[shard]
+        shard = (r.low_shard if key < r.split_key_bytes
+                 else r.high_shard)
+    return shard
+
+
+def _tick_rebalancer(reb, timings: Dict, tag: str,
+                     violations: List[str], want_kind: str,
+                     timeout: float = 30.0) -> List[dict]:
+    """Drive sense→decide→plan→dispatch ticks until a plan of
+    ``want_kind`` dispatches. Armed rebalancer seams raise out of a
+    tick; the next tick re-derives everything from the durable ledgers
+    (exactly what run_forever's catch-all rides on)."""
+    dispatched: List[dict] = []
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            dispatched += reb.once()
+        except Exception:
+            timings["tick_errors"] += 1
+        if any(p["kind"] == want_kind for p in dispatched):
+            return dispatched
+        time.sleep(0.3)
+    violations.append(
+        f"{tag}: rebalancer never dispatched a {want_kind} "
+        f"(policy {reb.policy.snapshot()}, dispatched {dispatched})")
+    return dispatched
+
+
+def _join_rebalance_workers(reb, tag: str, violations: List[str],
+                            timeout: float = 90.0) -> None:
+    deadline = time.monotonic() + timeout
+    for t in list(reb._workers):
+        t.join(max(0.1, deadline - time.monotonic()))
+        if t.is_alive():
+            violations.append(f"{tag}: actuator {t.name} wedged "
+                              f"(no exit in {timeout}s)")
+
+
+def _rebalance_schedule(kind: str):
+    def run(cluster: FailoverCluster, rng: random.Random,
+            acked_by_shard: Dict[int, List], violations: List[str],
+            tag: str, timings: Dict) -> None:
+        from rocksplicator_tpu_torch.cluster.model import cluster_path
+        from rocksplicator_tpu_torch.cluster.rebalancer import Rebalancer
+        from rocksplicator_tpu_torch.cluster.shard_move import MoveRecord, \
+            ShardMove
+        from rocksplicator_tpu_torch.cluster.shard_split import ShardSplit
+        from rocksplicator_tpu_torch.utils.segment_utils import (
+            db_name_to_partition_name, segment_to_db_name)
+
+        want_split = kind == "rebalance_split_hot"
+        leaves = _split_leaves(cluster)
+        hot, cold = leaves[0], leaves[1:]
+        hot_db = segment_to_db_name(cluster.segment, hot)
+        hot_partition = db_name_to_partition_name(hot_db)
+        if want_split:
+            # enough keys on BOTH sides of the eventual median that
+            # choose_split_key has a real keyspace to bisect and both
+            # children inherit acked history to be checked against
+            pre = acked_by_shard.setdefault(hot, [])
+            node = cluster.leader_node(hot_partition)
+            app = (node.handler.db_manager.get_db(hot_db)
+                   if node is not None else None)
+            if app is None:
+                violations.append(f"{tag}: no leader to preload")
+                return
+            waiters = []
+            for i in range(120):
+                for prefix in (b"a", b"z"):
+                    key = prefix + (b"%05d" % i)
+                    waiters.append((key, app.write_async(
+                        WriteBatch().put(key, key))))
+            for key, w in waiters:
+                try:
+                    w.future.result(5.0)
+                except Exception:
+                    continue
+                if w.acked:
+                    pre.append((key, key))
+        reb = Rebalancer(
+            cluster.client, cluster.cluster, cluster.store_uri,
+            flags=_rebalance_flags(split=want_split),
+            move_flags=_move_flags(), admin=cluster.admin,
+            load_fn=_SeqRateLoad(cluster))
+        # the durable pause flag gates the tick before any sensing
+        Rebalancer.set_paused(cluster.client, cluster.cluster, True)
+        if not reb.paused:
+            violations.append(f"{tag}: durable pause flag not visible")
+        Rebalancer.set_paused(cluster.client, cluster.cluster, False)
+        if kind == "rebalance_move_faulted":
+            # every rebalancer seam blipped once + the dispatched
+            # move killed mid-catch-up: the loop must ride the seam
+            # faults and the harness must RESUME the crashed move
+            fp.activate("rebalance.decide", "fail_nth:2")
+            fp.activate("rebalance.plan", "fail_nth:1")
+            fp.activate("rebalance.dispatch", "fail_nth:1")
+            fp.activate("move.catchup", "fail_nth:1")
+        elif want_split and not timings.get("fast_fail"):
+            # kill the splitter AT the fenced flip: the durable record
+            # holds phase=cutover; resume finishes it idempotently
+            fp.activate("split.cutover", "fail_nth:1")
+        # the skew: one shard driven hard, the rest trickling — fleet
+        # mean stays low, the hot EWMA must clear the enter band for
+        # `sustain` consecutive ticks before the policy may act
+        writers = [_ShardWriter(cluster, hot, tag, interval=0.004,
+                                acked_by_shard=acked_by_shard,
+                                prefix=b"zz")]
+        writers += [_ShardWriter(cluster, s, tag, interval=0.25,
+                                 acked_by_shard=acked_by_shard)
+                    for s in cold[:2]]
+        t0 = time.monotonic()
+        try:
+            plans = _tick_rebalancer(
+                reb, timings, tag, violations,
+                want_kind="split" if want_split else "move")
+            _join_rebalance_workers(reb, tag, violations)
+            for p in plans:
+                timings["dispatched"][p["kind"]] = \
+                    timings["dispatched"].get(p["kind"], 0) + 1
+            fp.clear()
+            # a crashed actuator left its durable record mid-phase:
+            # finish the job the way an operator (or the next tick's
+            # budget accounting + resume tooling) would
+            if kind == "rebalance_move_faulted":
+                raw = cluster.client.get_or_none(cluster_path(
+                    cluster.cluster, "moves", hot_partition))
+                if raw is not None:
+                    rec = MoveRecord.decode(raw)
+                    try:
+                        ShardMove.resume(
+                            cluster.client, cluster.cluster,
+                            hot_partition, admin=cluster.admin,
+                            flags=_move_flags()).run()
+                        timings["resumes"] += 1
+                    except Exception as e:
+                        violations.append(
+                            f"{tag}: RESUME FAILED from phase "
+                            f"{rec.phase}: {e!r}")
+            elif want_split:
+                from rocksplicator_tpu_torch.cluster.model import SplitRecord
+
+                raw = cluster.client.get_or_none(cluster_path(
+                    cluster.cluster, "splits", hot_partition))
+                rec = SplitRecord.decode(raw) if raw is not None else None
+                if rec is not None and rec.phase != "active":
+                    try:
+                        ShardSplit.resume(
+                            cluster.client, cluster.cluster,
+                            hot_partition, admin=cluster.admin,
+                            flags=_move_flags()).run()
+                        timings["resumes"] += 1
+                    except Exception as e:
+                        violations.append(
+                            f"{tag}: SPLIT RESUME FAILED from phase "
+                            f"{rec.phase}: {e!r}")
+                elif rec is None:
+                    violations.append(
+                        f"{tag}: split dispatched but no record left")
+        finally:
+            fp.clear()
+            for w in writers:
+                w.stop_collect()
+                timings["write_errors"] += w.errors
+            reb.stop(timeout=5.0)
+        timings["schedule_ms"].append(
+            round((time.monotonic() - t0) * 1000.0, 1))
+
+    return run
+
+
+def _check_rebalance_invariants(cluster: FailoverCluster,
+                                acked_by_shard: Dict[int, List],
+                                tag: str, violations: List[str],
+                                timeout: float = 45.0) -> int:
+    """The SEVENTH standing invariant, after EVERY rebalance schedule:
+    every leaf partition of the split forest converges (one leader +
+    full replica set at equal seqs; the shard map and the data plane
+    agree on exactly one unfenced leader each), NO node holds a db
+    outside the leaf set (the split-retired parent must be gone
+    everywhere), active splits are published in the map's __splits__
+    section, every acked write is readable on every current host of
+    the child that OWNS its key range, and the heal stays inside the
+    controller-pass bound."""
+    from rocksplicator_tpu_torch.cluster.shard_split import list_splits
+    from rocksplicator_tpu_torch.utils.segment_utils import (
+        db_name_to_partition_name, segment_to_db_name)
+
+    passes0 = cluster.controller.passes
+    detail: Dict = {}
+
+    def leaf_view():
+        leaves = _split_leaves(cluster)
+        return leaves, {
+            s: (segment_to_db_name(cluster.segment, s),
+                db_name_to_partition_name(
+                    segment_to_db_name(cluster.segment, s)))
+            for s in leaves}
+
+    def healthy():
+        from rocksplicator_tpu_torch.storage.errors import StorageError
+
+        leaves, names = leaf_view()
+        expected_dbs = {db for db, _p in names.values()}
+        splits = list_splits(cluster.client, cluster.cluster)
+        try:
+            for s in leaves:
+                db, partition = names[s]
+                hosts = [n for n in cluster.nodes
+                         if n.state_of(partition)]
+                states = sorted(n.state_of(partition) for n in hosts)
+                if states != ["FOLLOWER", "FOLLOWER", "LEADER"]:
+                    detail[partition] = cluster.states(partition)
+                    return False
+                seqs = []
+                for n in hosts:
+                    app = n.handler.db_manager.get_db(db)
+                    if app is None:
+                        detail[partition] = (n.name, "db closed")
+                        return False
+                    seqs.append(app.db.latest_sequence_number_relaxed())
+                if len(set(seqs)) != 1:
+                    detail[partition] = ("seqs", seqs)
+                    return False
+                host_names = {n.name for n in hosts}
+                for n in cluster.nodes:
+                    if n.name not in host_names and \
+                            n.handler.db_manager.get_db(db) is not None:
+                        detail[partition] = ("garbage", n.name)
+                        return False
+                dp_leaders = [
+                    n.name for n in cluster.nodes
+                    if (lambda rdb: rdb is not None
+                        and rdb.role is ReplicaRole.LEADER
+                        and not rdb.fenced
+                        and not rdb.removed)(n.rdb(db))]
+                if len(dp_leaders) != 1:
+                    detail[partition] = ("lineages", dp_leaders)
+                    return False
+            # the split-retired parent is gone EVERYWHERE: its lineage
+            # was closed to writers by the leader rename at cutover and
+            # every replica was renamed into a child — a parent-named
+            # db still open anywhere is a stranded pre-split lineage a
+            # router retry could read stale data from
+            for r in splits:
+                if r.phase != "active":
+                    continue
+                parent_db = segment_to_db_name(cluster.segment,
+                                               r.parent_shard)
+                if parent_db in expected_dbs:
+                    continue  # re-split child reusing a leaf id
+                for n in cluster.nodes:
+                    if n.handler.db_manager.get_db(parent_db) \
+                            is not None:
+                        detail["parent"] = (parent_db, n.name)
+                        return False
+        except StorageError as e:
+            detail["transition"] = repr(e)
+            return False
+        if not cluster.maps:
+            detail["map"] = "never published"
+            return False
+        seg = cluster.maps[-1].get(cluster.segment) or {}
+        active = [r for r in splits if r.phase == "active"]
+        published = seg.get("__splits__") or {}
+        for r in active:
+            if str(r.parent_shard) not in published:
+                detail["map"] = f"split of {r.parent_shard} unpublished"
+                return False
+        for s in leaves:
+            mark = f"{s:05d}:M"
+            n_leaders = sum(
+                1 for host, entries in seg.items()
+                if host not in ("num_shards", "__splits__")
+                for e in entries if e == mark)
+            if n_leaders != 1:
+                detail["map"] = f"shard {s}: {n_leaders} leaders in map"
+                return False
+        return True
+
+    def stable_healthy():
+        if not healthy():
+            return False
+        time.sleep(0.35)
+        return healthy()
+
+    ok = cluster.wait(stable_healthy, timeout)
+    passes = cluster.controller.passes - passes0
+    if not ok:
+        violations.append(
+            f"{tag}: NO HEAL within {timeout}s / {passes} controller "
+            f"passes — {detail}")
+        # fall through to the acked probe anyway: when the cluster is
+        # wedged BECAUSE data went missing (the split_cutover tooth),
+        # the loss itself is the diagnosis, not the non-convergence
+    elif passes > RESHARD_PASS_BOUND:
+        violations.append(
+            f"{tag}: healed but took {passes} controller passes "
+            f"(bound {RESHARD_PASS_BOUND})")
+    # the sharp probe, strict and waitless once converged: every acked
+    # key readable on every current host of the child OWNING its range
+    # — what the split_cutover tooth (rename without pause/drain) loses
+    _leaves, names = leaf_view()
+    for shard, ledger in sorted(acked_by_shard.items()):
+        for key, val in ledger:
+            leaf = _owning_leaf(cluster, shard, key)
+            db, partition = names.get(leaf, (None, None))
+            if db is None:
+                violations.append(
+                    f"{tag}: acked key {key!r} resolves to unserved "
+                    f"leaf {leaf}")
+                return passes
+            for n in cluster.nodes:
+                if not n.state_of(partition):
+                    continue
+                if not ok and n.state_of(partition) not in _LEADERLIKE:
+                    # unconverged cluster: a follower mid-rebuild is
+                    # legitimately incomplete — only the child LEADER's
+                    # copy is the can-never-heal truth
+                    continue
+                app = n.handler.db_manager.get_db(db)
+                if app is None or app.db.get(key) != val:
+                    violations.append(
+                        f"{tag}: ACKED WRITE {key!r} MISSING ON CHILD "
+                        f"{db} host {n.name} (lost across the split "
+                        f"cutover)")
+                    return passes
+    return passes
+
+
+def _rebalance_deck(rng: random.Random, schedules: int,
+                    break_guard: Optional[str]) -> List[str]:
+    """move, split, faulted-move in order (the smoke's 2 moves + 1
+    split); the split_cutover tooth leads with the split it breaks."""
+    if break_guard == "split_cutover":
+        deck = ["rebalance_split_hot"]
+    else:
+        deck = []
+    core = list(_REBALANCE_KINDS)
+    while len(deck) < schedules:
+        deck.extend(core)
+    return deck[:schedules]
+
+
+def run_rebalance_chaos(
+    root: str,
+    schedules: int = 3,
+    seed: int = 1,
+    break_guard: Optional[str] = None,
+    heal_timeout: float = 45.0,
+    log=print,
+    device=None,
+) -> Dict:
+    """Autonomous-rebalancer schedules: the harness drives SKEWED load
+    at a 4-node / 2-hash-shard cluster and the policy loop must sense
+    the sustained hot spot, plan, and dispatch the move — or, past the
+    split threshold, the range split — on its own. Seam faults
+    ("rebalance.decide/plan/dispatch", "split.cutover",
+    move.catchup) kill the loop and its actuators mid-flight; durable
+    ledgers + resume must finish every job. After every schedule the
+    SEVENTH standing invariant is checked. The four nodes compact on
+    ``device`` (None means ``cuda``; raises without CUDA) at the chaos
+    scale (``_chaos_scale``)."""
+    resolve_device(device)
+    with _chaos_scale():
+        return _run_rebalance_deck(root, schedules, seed, break_guard,
+                                   heal_timeout, log, device)
+
+
+def _run_rebalance_deck(root, schedules, seed, break_guard, heal_timeout,
+                        log, device) -> Dict:
+    saved_env = {
+        k: os.environ.get(k)
+        for k in ("RSTPU_RETRY_SEED", "RSTPU_PULL_RETRY_SEED")
+    }
+    os.environ["RSTPU_RETRY_SEED"] = str(seed)
+    os.environ["RSTPU_PULL_RETRY_SEED"] = str(seed)
+    undo = _break_guard(break_guard) if break_guard else None
+    violations: List[str] = []
+    acked_by_shard: Dict[int, List[Tuple[bytes, bytes]]] = {}
+    timings: Dict = {"schedule_ms": [], "dispatched": {}, "resumes": 0,
+                     "tick_errors": 0, "write_errors": 0,
+                     "passes_used": [],
+                     "fast_fail": bool(break_guard)}
+    gauge_snapshots: List[Dict] = []
+    fp.clear()
+    t_setup = time.monotonic()
+    cluster = FailoverCluster(root, num_nodes=4, num_shards=2,
+                              device=device)
+    deck: List[str] = []
+    try:
+        cluster.wait_initial_convergence()
+        setup_sec = round(time.monotonic() - t_setup, 1)
+        deck = _rebalance_deck(random.Random(seed), schedules,
+                               break_guard)
+        log(f"  cluster up in {setup_sec}s (4 nodes / 2 hash shards); "
+            f"deck: {deck}")
+        for si, kind in enumerate(deck):
+            rng = random.Random(seed * 1_000_003 + si)
+            tag = f"s{si:02d}-{kind}/seed {seed}"
+            try:
+                _rebalance_schedule(kind)(
+                    cluster, rng, acked_by_shard, violations, tag,
+                    timings)
+            finally:
+                fp.clear()
+            if violations and break_guard:
+                break
+            timings["passes_used"].append(
+                _check_rebalance_invariants(
+                    cluster, acked_by_shard, tag, violations,
+                    timeout=heal_timeout))
+            gauge_snapshots.append(_gauge_snapshot(tag))
+            acked = sum(len(v) for v in acked_by_shard.values())
+            log(f"  [{si + 1}/{len(deck)}] {kind}: acked={acked} "
+                f"dispatched={timings['dispatched']} "
+                f"resumes={timings['resumes']} "
+                f"violations={len(violations)}")
+            if violations and break_guard:
+                break
+    finally:
+        fp.clear()
+        if undo:
+            undo()
+        cluster.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {
+        "mode": "rebalance",
+        "schedules": len(deck),
+        "deck": deck,
+        "seed": seed,
+        "acked": sum(len(v) for v in acked_by_shard.values()),
+        "write_errors": timings["write_errors"],
+        "violations": violations,
+        "dispatched": timings["dispatched"],
+        "resumes": timings["resumes"],
+        "tick_errors": timings["tick_errors"],
+        "schedule_ms": timings["schedule_ms"],
+        "passes_used": timings["passes_used"],
+        "gauge_snapshots": gauge_snapshots,
+        "failpoint_trips": fp.trip_counts(),
+        "break_guard": break_guard,
+    }
+
+
+# ---------------------------------------------------------------------------
 # the CDC deck (cdc_burst): the exactly-once consumer under kills
 # ---------------------------------------------------------------------------
 
@@ -2459,6 +3919,24 @@ def main(argv=None) -> int:
                          "leader crash with a full AckWindow, session "
                          "expiry, coordinator kill/WAL torn — holding "
                          "the fourth standing invariant")
+    ap.add_argument("--reshard", action="store_true",
+                    help="live-shard-move schedules (4 nodes / 3 "
+                         "replicas): the move coordinator killed at "
+                         "every step-machine seam, source/target kills "
+                         "mid-move, torn coordinator WAL during the "
+                         "flip, session expiry mid-catch-up — holding "
+                         "the SIXTH standing invariant (exactly one "
+                         "serving lineage, zero acked-write loss across "
+                         "the move, bounded convergence)")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="autonomous-rebalancer schedules (4 nodes / 2 "
+                         "hash shards): skewed load only — the policy "
+                         "loop itself must sense the sustained hot "
+                         "shard and dispatch the move (or, past the "
+                         "split threshold, the RANGE SPLIT), riding "
+                         "decide/plan/dispatch seam faults and a "
+                         "splitter killed AT the fenced cutover — "
+                         "holding the SEVENTH standing invariant")
     ap.add_argument("--cdc", action="store_true",
                     help="CDC streaming-ingest schedules (the cdc_burst "
                          "deck): kill/restart the exactly-once consumer "
@@ -2474,7 +3952,8 @@ def main(argv=None) -> int:
                          "policy, i.e. tcp; data-plane mode only)")
     ap.add_argument("--break-guard",
                     choices=["wal_hole", "meta_first", "fencing",
-                             "remote_install", "cdc_dedup",
+                             "move_flip", "remote_install",
+                             "split_cutover", "cdc_dedup",
                              "mux_misroute"])
     ap.add_argument("--expect-violation", action="store_true",
                     help="exit 0 iff a violation WAS caught")
@@ -2485,26 +3964,43 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.break_guard == "fencing" and not args.failover:
         ap.error("--break-guard fencing requires --failover")
+    if args.break_guard == "move_flip" and not args.reshard:
+        ap.error("--break-guard move_flip requires --reshard")
+    if args.break_guard == "split_cutover" and not args.rebalance:
+        ap.error("--break-guard split_cutover requires --rebalance")
     if args.break_guard == "cdc_dedup" and not args.cdc:
         ap.error("--break-guard cdc_dedup requires --cdc")
-    if args.break_guard == "mux_misroute" and (args.failover or args.cdc):
+    if args.break_guard == "mux_misroute" and (
+            args.failover or args.reshard or args.rebalance or args.cdc):
         ap.error("--break-guard mux_misroute is data-plane only "
-                 "(drop --failover/--cdc)")
+                 "(drop --failover/--reshard/--rebalance/--cdc)")
     if args.break_guard == "remote_install":
-        if args.failover:
+        if args.failover or args.reshard:
             ap.error("--break-guard remote_install is data-plane only "
-                     "(drop --failover)")
+                     "(drop --failover/--reshard)")
         if not args.remote_every:
             ap.error("--break-guard remote_install requires "
                      "--remote-every > 0")
-    if args.failover and args.cdc:
-        ap.error("--failover / --cdc are mutually exclusive")
+    if sum(map(bool, (args.failover, args.reshard, args.rebalance,
+                      args.cdc))) > 1:
+        ap.error("--failover / --reshard / --rebalance / --cdc are "
+                 "mutually exclusive")
 
     root = tempfile.mkdtemp(prefix="rstpu-chaos-")
     t0 = time.monotonic()
     try:
         if args.cdc:
             result = run_cdc_chaos(
+                root, schedules=args.schedules, seed=args.seed,
+                break_guard=args.break_guard, device=args.device,
+            )
+        elif args.rebalance:
+            result = run_rebalance_chaos(
+                root, schedules=args.schedules, seed=args.seed,
+                break_guard=args.break_guard, device=args.device,
+            )
+        elif args.reshard:
+            result = run_reshard_chaos(
                 root, schedules=args.schedules, seed=args.seed,
                 break_guard=args.break_guard, device=args.device,
             )
@@ -2532,6 +4028,27 @@ def main(argv=None) -> int:
               f"{result['kills']} consumer kills / "
               f"{result['consumer_starts']} starts, "
               f"{result['elapsed_sec']}s")
+    elif args.rebalance:
+        print(f"chaos[rebalance]: {result['schedules']} schedules, "
+              f"{result['acked']} acked writes through policy-driven "
+              f"placement ({result['write_errors']} refused), "
+              f"{result['elapsed_sec']}s")
+        print(f"chaos[rebalance]: dispatched {result['dispatched']}, "
+              f"{result['resumes']} resumed after kills, "
+              f"{result['tick_errors']} seam-faulted ticks, controller "
+              f"passes {result['passes_used']}")
+    elif args.reshard:
+        print(f"chaos[reshard]: {result['schedules']} schedules, "
+              f"{result['acked']} acked writes through live moves "
+              f"({result['write_errors']} refused), "
+              f"{result['elapsed_sec']}s")
+        print(f"chaos[reshard]: move outcomes "
+              f"{result['move_outcomes']}, move median "
+              f"{result['move_ms_median']} ms, controller passes "
+              f"{result['passes_used']}")
+        print(f"chaos[reshard]: reads {result['reads_served']} served / "
+              f"{result['reads_checked']} checked "
+              f"({result['read_bounces']} bounces)")
     elif args.failover:
         print(f"chaos[failover]: {result['schedules']} schedules, "
               f"{result['acked']} strict-ledger acks "
@@ -2563,6 +4080,8 @@ def main(argv=None) -> int:
         print(f"REPRO: python -m rocksplicator_tpu_torch.tools.chaos_soak "
               f"--schedules {args.schedules} --seed {args.seed}"
               + (" --failover" if args.failover else "")
+              + (" --reshard" if args.reshard else "")
+              + (" --rebalance" if args.rebalance else "")
               + (" --cdc" if args.cdc else "")
               + (f" --transport {args.transport}"
                  if args.transport else "")
@@ -2575,6 +4094,13 @@ def main(argv=None) -> int:
               "per partition on every serving replica — watermark, "
               "applies-counter witness, and log-fold all agree)"
               if args.cdc else
+              " (policy-initiated placement: one unfenced leader per "
+              "CHILD, zero acked loss resolved per owning range, "
+              "parent retired everywhere, bounded convergence)"
+              if args.rebalance else
+              " (exactly one serving lineage per shard, zero acked "
+              "loss across the move, bounded convergence, no stranded "
+              "replicas)" if args.reshard else
               " (exactly-one-leader, zero acked loss across handoff, "
               "bounded shard-map convergence, bounded-staleness + "
               "lineage reads)" if args.failover else
