@@ -27,6 +27,14 @@ PyTorch built for CUDA. It
    with every fast-path flag off — under both ``sort_backend``s, with every
    launch count set to 0 just before and read just after, and compares
    every output with the plain pipeline on the card (shard by shard);
+3b. drives the multi-device compaction step (``parallel/mesh.py``,
+   ``mesh_step``) on a 4 x 2 grid whose 8 tiles all lie on the card: 8
+   shards x 2 blocks x 2^17 entries, planar on, under both sort backends,
+   every kernel call against its plan (K2 or K1 once a tile and once a
+   shard row, K3 once a row), ``entry.dryrun_multichip``'s assertions
+   against the unsharded pipeline, the card grid equal to a CPU grid of
+   8 (the plain versions) at 2^12 a block, the step and the unsharded
+   batched forward timed, and a ``tools/multichip_scaling`` series;
 4. checks a small hand-made batch against known answers;
 4b. drives the engine seam, ``gpu.GpuCompactionBackend``, each path with
    the launch counts set to 0 just before it and read just after:
@@ -6971,6 +6979,194 @@ def chaos_rebalance(dev, work_dir: str, card: str) -> tuple:
     return report, launches
 
 
+MESH_DEVICES = 8  # a 4 x 2 grid: derive_block_axis(8) == 2
+MESH_ENTRIES = 1 << 17  # a block's entries: the JAX dryrun's default
+MESH_PLAIN_ENTRIES = 1 << 12  # the plain hold's (a CPU grid)
+MESH_SERIES = (1 << 15, 1 << 16, 1 << 17, 1 << 18)
+MESH_REPS = 10
+MESH_BACKENDS = ("fused", "bitonic")
+
+
+def _mesh_calls(backend: str, grid, model, entries: int) -> list:
+    """The kernel calls one step makes on ``grid``, in order, each with
+    the CUDA launches of its plan: a batched merge a tile (its s shards
+    of N rows), then a row's final merge (s shards of B * N) and its
+    batched K3."""
+    from rocksplicator_tpu_torch.ops.bitonic_sort import plan_sort
+    from rocksplicator_tpu_torch.ops.bloom_kernel import plan_bloom
+    from rocksplicator_tpu_torch.ops.fused_resolve import (plan_fused,
+                                                           sort_lane_count)
+
+    w = model.val_words
+    lanes = sort_lane_count(w, 6, False, False)  # the mesh's flags: off
+    num_keys = lanes - 2 - w
+
+    def merge(s: int, segment: int) -> tuple:
+        if backend == "fused":
+            return ("fused_resolve",
+                    plan_fused(s * segment, w, segment=segment).launches)
+        return ("bitonic_sort", plan_sort(s * segment, num_keys,
+                                          lanes - num_keys, segment).launches)
+
+    rows, block = grid.shape["shard"], grid.shape["block"]
+    s = 2  # shards a tile: make_sharded_inputs(shards_per_device=2)
+    final_rows = block * entries
+    return ([merge(s, entries)] * rows * block
+            + [merge(s, final_rows), ("bloom_build", plan_bloom(
+                s, final_rows, model.num_bloom_words).launches)] * rows)
+
+
+def mesh_step(card: str) -> tuple:
+    """The multi-device compaction step (``parallel/mesh.py``) on a 4 x 2
+    grid of tiles all on the card, 8 shards x 2 blocks x 2^17 entries,
+    planar on, under both sort backends. The plain hold twice: the step at
+    2^12 a block on a CPU grid of 8 (the plain versions) equal to the card
+    grid's on every output, and, in the counted step at the full shape,
+    every K2/K1 and K3 call held against ``merge_resolve_plain`` /
+    ``bloom_build_plain`` on the same card tensors (tolerance 0). The
+    counted step's kernel calls against the plan (K2 or K1 8 tile merges
+    and 4 row merges, K3 4 batched calls) and its outputs against
+    ``dryrun_multichip``'s assertions; the step timed beside the
+    unsharded batched forward on the same data; a ``run_shape`` series
+    (fused, 2^15 to 2^18 a block). Returns the report, the launches and
+    each kernel's largest error against its plain version."""
+    import torch
+
+    from rocksplicator_tpu_torch.entry import dryrun_case, dryrun_check
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.ops.bloom import bloom_build_plain
+    from rocksplicator_tpu_torch.ops.compaction_kernel import (
+        merge_resolve_plain)
+    from rocksplicator_tpu_torch.parallel import mesh as mesh_mod
+    from rocksplicator_tpu_torch.tools.multichip_scaling import run_shape
+
+    t0 = time.time()
+    cards = [torch.device(DEVICE, 0)] * MESH_DEVICES
+    cpus = [torch.device("cpu")] * MESH_DEVICES
+    errs = {"fused_resolve": 0, "bitonic_sort": 0, "bloom_build": 0}
+
+    def outputs(out) -> dict:
+        final, bloom, counts, gc, fb = out
+        return {k: v.cpu() for k, v in {
+            **final, "bloom": bloom, "counts": counts, "global_count": gc,
+            "needs_fallback": fb}.items()}
+
+    # the plain hold at 2^12 a block: the same step on a CPU grid
+    cpu = dryrun_case(MESH_DEVICES, "fused", MESH_PLAIN_ENTRIES, cpus)
+    want = outputs(cpu.step(*cpu.args))
+    small_err = {}
+    for backend in MESH_BACKENDS:
+        case = dryrun_case(MESH_DEVICES, backend, MESH_PLAIN_ENTRIES, cards)
+        small_err[backend] = compare_outputs(
+            outputs(case.step(*case.args)), want,
+            f"mesh_step [{backend}] at {MESH_PLAIN_ENTRIES} a block vs the "
+            f"CPU grid")
+
+    # the plain hold at the full shape: each kernel call of the step
+    # against its plain version on the same card tensors
+    kernel_merge = mesh_mod.merge_resolve_batched
+    kernel_bloom = mesh_mod.bloom_build_batched
+    held = []
+
+    def held_merge(*lanes, sort_backend: str, **flags):
+        per = [merge_resolve_plain(*(x[s] for x in lanes), **flags)
+               for s in range(lanes[0].shape[0])]
+        plain = {k: torch.stack([o[k] for o in per]) for k in per[0]}
+        got = kernel_merge(*lanes, sort_backend=sort_backend, **flags)
+        name = "fused_resolve" if sort_backend == "fused" else "bitonic_sort"
+        held.append((name, compare_outputs(
+            got, plain, f"mesh_step {name} call {len(held)} "
+                        f"(drop_tombstones={flags['drop_tombstones']}) vs "
+                        f"merge_resolve_plain")))
+        return got
+
+    def held_bloom(kw_le, key_len, count, *, num_words: int):
+        rows = torch.arange(key_len.shape[1], device=key_len.device)
+        plain = torch.stack([bloom_build_plain(
+            kw_le[s], key_len[s], rows < count[s], num_words=num_words)
+            for s in range(key_len.shape[0])])
+        got = kernel_bloom(kw_le, key_len, count, num_words=num_words)
+        held.append(("bloom_build", compare_outputs(
+            {"bloom": got}, {"bloom": plain},
+            f"mesh_step bloom_build call {len(held)} vs bloom_build_plain")))
+        return got
+
+    count_launch = _build.count_launch
+    calls = []
+
+    def counted(name, cuda_launches=None):
+        calls.append((name, cuda_launches))
+        count_launch(name, cuda_launches)
+
+    report = {"card": card, "grid": None, "backends": {}}
+    launches = {k: 0 for k in _build.KERNELS}
+    for backend in MESH_BACKENDS:
+        case = dryrun_case(MESH_DEVICES, backend, MESH_ENTRIES, cards)
+        report["grid"] = {"shape": case.mesh.shape,
+                          "devices": [str(d) for d in cards]}
+        torch.cuda.synchronize()
+        calls.clear()
+        held.clear()
+        _build.count_launch = counted
+        mesh_mod.merge_resolve_batched = held_merge
+        mesh_mod.bloom_build_batched = held_bloom
+        _build.reset_launches()
+        try:
+            out = case.step(*case.args)
+            torch.cuda.synchronize()
+        finally:
+            _build.count_launch = count_launch
+            mesh_mod.merge_resolve_batched = kernel_merge
+            mesh_mod.bloom_build_batched = kernel_bloom
+        counts = dict(_build.LAUNCHES)
+        plan = _mesh_calls(backend, case.mesh, case.model, MESH_ENTRIES)
+        if calls != plan:
+            raise AssertionError(f"mesh_step [{backend}]: kernel calls "
+                                 f"{calls}, the plan says {plan}")
+        if [n for n, _ in held] != [n for n, _ in plan]:
+            raise AssertionError(f"mesh_step [{backend}]: held calls "
+                                 f"{held}, the plan says {plan}")
+        for k in launches:
+            launches[k] += counts[k]
+        for name, err in held:
+            errs[name] = max(errs[name], err)
+        dry = dryrun_check(case, out)
+        row = {"calls": counts,
+               "cuda_launches_per_call": sorted(set(calls)),
+               "held_calls": len(held),
+               "step_ms": time_ms(lambda: case.step(*case.args),
+                                  MESH_REPS, 2),
+               "unsharded_forward_ms": time_ms(
+                   lambda: case.model(*case.flat_args), MESH_REPS, 2)}
+        row.update({k: dry[k] for k in (
+            "input_entries", "merged_entries", "parity_sha256",
+            "bloom_sha256", "planar_sha256")})
+        report["backends"][backend] = row
+        del case, out
+    hashes = {tuple(r[k] for k in ("parity_sha256", "bloom_sha256",
+                                   "planar_sha256"))
+              for r in report["backends"].values()}
+    if len(hashes) != 1:
+        raise AssertionError(f"mesh_step: the backends' hashes differ "
+                             f"({hashes})")
+    report["series"] = [run_shape(MESH_DEVICES, "fused", n, cards)
+                        for n in MESH_SERIES]
+    report["plain_hold"] = {
+        "small": {"entries_per_block": MESH_PLAIN_ENTRIES,
+                  "compared_with": "the same step on a CPU grid of 8 "
+                                   "(plain versions)",
+                  "merged_entries": int(want["global_count"]),
+                  "max_abs_err": small_err},
+        "full_shape": {"entries_per_block": MESH_ENTRIES,
+                       "compared_with": "each kernel call of the counted "
+                                        "step against merge_resolve_plain "
+                                        "/ bloom_build_plain on the same "
+                                        "card tensors",
+                       "max_abs_err": errs}}
+    report["seconds"] = time.time() - t0
+    return report, launches, errs
+
+
 def main() -> int:
     import os
 
@@ -7402,6 +7598,13 @@ def main() -> int:
                            "the batched forward, and each shard's own "
                            "single-shard forward)", "max_abs_err": 0})
 
+    # ---- 3b. the multi-device compaction step on a 4 x 2 grid --------
+    mesh_r, mesh_launches, mesh_errs = mesh_step(card)
+    for k, err in mesh_errs.items():
+        errs[k] = max(errs[k], err)
+    emit({"phase": "mesh_step", "elapsed_s": time.time() - _STARTED,
+          **mesh_r})
+
     # ---- 4. known answers on a small batch ---------------------------
     pk = struct.Struct("<q").pack
     entries = [
@@ -7604,6 +7807,7 @@ def main() -> int:
     _sort_flag(None)
     launches_by_path = {
         "main_path": launches,
+        "mesh_step": mesh_launches,
         "engine_seam_job": {k: sum(c[k] for c in job_launches.values())
                             for k in sources},
         "engine_seam_subcompact": sub_launches,
