@@ -35,6 +35,15 @@ PyTorch built for CUDA. It
    against the unsharded pipeline, the card grid equal to a CPU grid of
    8 (the plain versions) at 2^12 a block, the step and the unsharded
    batched forward timed, and a ``tools/multichip_scaling`` series;
+3c. drives the merge of pre-sorted runs (``ops/merge_network.py``,
+   ``merge_network``): the bench's 8 shards of 2^17 sorted into 8 and 32
+   runs a shard, ``merge_resolve_runs_kernel`` (K2 entered at run
+   length) and ``merge_sorted_lanes`` (K1 entered at run length, 6 lanes
+   and 10) counted against their plans (K2 6 and 8 CUDA launches a call),
+   held against the full-sort K2 and the plain versions, and timed beside
+   the full sort; then K1 and K2 at run length at edge shapes (runs
+   shorter than the tile, a run as long as the segment, tied keys, a
+   wide payload) against their plain versions;
 4. checks a small hand-made batch against known answers;
 4b. drives the engine seam, ``gpu.GpuCompactionBackend``, each path with
    the launch counts set to 0 just before it and read just after:
@@ -1835,7 +1844,12 @@ def engine_db_background(dev, traffic: dict, work_dir: str,
     half engine_db's depth, under ENGINE_BG_BUDGET_BYTES, a quarter of the
     default budget) from ENGINE_WRITERS threads on disjoint key ranges into one
     DB with background flush and compaction threads, the scheduler on and
-    the default backend (the card). Then flush(), wait
+    the default backend (the card), and one immutable memtable at most
+    (``max_write_buffers=2``): the flusher writes each full memtable as an
+    L0 file of its own, so the traffic makes at least the 4 L0 files that
+    trigger a background compaction (with a deeper queue a lagging flusher
+    merges the pending memtables into one file, and on a slow host the
+    traffic made 3 files and no background compaction). Then flush(), wait
     for the compaction thread to go idle, and compact_range(). Every
     acknowledged write reads back equal to the oracle, no background job
     failed, and the compaction thread launched K2 before compact_range."""
@@ -1855,7 +1869,8 @@ def engine_db_background(dev, traffic: dict, work_dir: str,
         compaction_backend=_card_backend(dev),
         memtable_bytes=traffic["memtable_bytes"],
         background_compaction=True, compaction_scheduler=True,
-        compaction_memory_budget_bytes=ENGINE_BG_BUDGET_BYTES))
+        compaction_memory_budget_bytes=ENGINE_BG_BUDGET_BYTES,
+        max_write_buffers=2))
     threads_of = []
     count_launch = _build.count_launch
 
@@ -1894,6 +1909,7 @@ def engine_db_background(dev, traffic: dict, work_dir: str,
             raise AssertionError(f"engine db background: {failed}")
         db.flush()
         flush_s = time.time() - t0 - write_s
+        l0_flushed = len(db._levels[0])
         deadline = time.time() + 600
         while True:
             idle = db._compaction_mutex.acquire(blocking=False)
@@ -1922,7 +1938,8 @@ def engine_db_background(dev, traffic: dict, work_dir: str,
     bg_k2 = [t for k, t in bg if k == "fused_resolve"]
     if not bg_k2 or not all(t.startswith("lsm-compact-") for t in bg_k2):
         raise AssertionError(f"engine db background: K2 before "
-                             f"compact_range from {bg_k2}")
+                             f"compact_range from {bg_k2} ({l0_flushed} "
+                             f"L0 files after the flush)")
     if failures != (0, 0):
         raise AssertionError(f"engine db background: failures {failures}")
     lat = sorted(x for per in latencies for x in per)
@@ -6416,9 +6433,43 @@ def _set_chaos_knobs(knobs: tuple) -> None:
      stream_merge.CHUNK_ENTRIES_OVERRIDE) = knobs
 
 
+class _ClusterLog:
+    """The port's cluster and chaos-harness log lines of one run (each
+    participant's transitions and session expiries, the harness's settle
+    waits), the last ``keep`` of them, at INFO for the run only."""
+
+    NAMES = ("rocksplicator_tpu_torch.cluster",
+             "rocksplicator_tpu_torch.tools.chaos_soak")
+
+    def __init__(self, keep: int = 200):
+        import collections
+        import logging
+
+        self.lines = collections.deque(maxlen=keep)
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda rec: self.lines.append(
+            f"{rec.created:.3f} {rec.levelname} {rec.getMessage()}")
+        self.loggers = [logging.getLogger(n) for n in self.NAMES]
+
+    def __enter__(self) -> "_ClusterLog":
+        import logging
+
+        self.levels = [lg.level for lg in self.loggers]
+        for lg in self.loggers:
+            lg.addHandler(self.handler)
+            lg.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for lg, level in zip(self.loggers, self.levels):
+            lg.removeHandler(self.handler)
+            lg.setLevel(level)
+
+
 def _chaos_deck(run, what: str, dev, work_dir: str, **kw) -> tuple:
     """One deck, its launches and failpoint trips counted alone:
-    (report, launches)."""
+    (report, launches). A deck that raises or breaks an invariant prints
+    the tail of its cluster log to stderr."""
     import torch
 
     from rocksplicator_tpu_torch.ops import _build
@@ -6428,12 +6479,19 @@ def _chaos_deck(run, what: str, dev, work_dir: str, **kw) -> tuple:
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
+    result = {}
+    cluster_log = _ClusterLog()
     try:
-        with _BgFailures() as bg:
+        with _BgFailures() as bg, cluster_log:
             result = run(root, log=lambda *a: None, device=dev, **kw)
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        if "break_guard" not in kw and (
+                not result or result.get("violations")):
+            print(json.dumps({"deck": what,
+                              "cluster_log": list(cluster_log.lines)}),
+                  file=sys.stderr, flush=True)
     launches = dict(_build.LAUNCHES)
     report = {k: result[k] for k in (
         "schedules", "seed", "writes", "acked", "produced", "kills",
@@ -6443,7 +6501,8 @@ def _chaos_deck(run, what: str, dev, work_dir: str, **kw) -> tuple:
         "reads_served", "reads_checked", "read_bounces", "dispatched",
         "resumes", "tick_errors", "schedule_ms", "compactions",
         "replicas_compacted", "k2_compact", "host_path", "split",
-        "retain_strays", "out_of_range_on_rebuilt") if k in result}
+        "retain_strays", "out_of_range_on_rebuilt")
+        if k in result}
     report.update(bg.report())
     report["seconds"] = time.perf_counter() - t0
     report["k2"] = launches["fused_resolve"]
@@ -7167,6 +7226,402 @@ def mesh_step(card: str) -> tuple:
     return report, launches, errs
 
 
+MERGE_RUNS = (8, 32)  # runs a shard: probe_mergenet's (L = 2^14, 2^12)
+MERGE_FLAGS = dict(uniform_klen=True, seq32=True, key_words=4)
+MERGE_PLAIN_REPS = 5  # the plain versions take tens of ms a call
+
+
+def _presorted_runs(args: tuple, runs: int, flags: dict = MERGE_FLAGS
+                    ) -> tuple:
+    """(S, C) lanes rearranged into (S, R, L) runs, each run sorted by the
+    composite key of ``flags`` (key asc, seq desc, invalid rows last),
+    outside any timed or counted region; the same rows as (S, C) lanes
+    too. The sort is the plain stable sort on the card (no kernel
+    launch)."""
+    import torch
+
+    from rocksplicator_tpu_torch.ops.bitonic_sort import sort_lanes_plain
+    from rocksplicator_tpu_torch.ops.compaction_kernel import (
+        composite_key_lanes)
+
+    kw, kl, shi, slo, vt, vw, vl, valid = args
+    shards, cap = kl.shape
+    length = cap // runs
+    keys = composite_key_lanes(
+        (~valid).to(torch.int32).reshape(-1),
+        [kw[..., w].reshape(-1) for w in range(flags["key_words"])],
+        kl.reshape(-1), shi.reshape(-1), slo.reshape(-1), **{
+            k: flags[k] for k in ("uniform_klen", "seq32")})
+    rows = torch.arange(shards * cap, dtype=torch.int32, device=kl.device)
+    perm = sort_lanes_plain([x.contiguous() for x in keys] + [rows],
+                            len(keys), length)[-1].long()
+    flat = tuple(x.reshape((shards * cap,) + tuple(x.shape[2:]))[perm]
+                 for x in args)
+    by_runs = tuple(x.view((shards, runs, length) + tuple(x.shape[1:]))
+                    for x in flat)
+    by_shard = tuple(x.view((shards, cap) + tuple(x.shape[1:]))
+                     for x in flat)
+    return by_runs, by_shard
+
+
+def _tree_lanes(args: tuple, payload: bool) -> list:
+    """The profile's tree lanes of (S, R, L) runs: (invalid, 4 key words,
+    ~seq_lo), 6 key lanes, and with ``payload`` vtype, the 2 value words
+    and val_len riding."""
+    import torch
+
+    kw, _kl, _shi, slo, vt, vw, vl, valid = args
+    lanes = [(~valid).to(torch.int32)] + [kw[..., w].contiguous()
+                                          for w in range(4)] + [~slo]
+    if payload:
+        lanes += [vt, vw[..., 0].contiguous(), vw[..., 1].contiguous(), vl]
+    return lanes
+
+
+def merge_network(card: str) -> tuple:
+    """The merge of pre-sorted runs (``ops/merge_network.py``, the analog
+    of the JAX profile's ``probe_mergenet``): the bench's 8 shards of
+    2^17 entries (``bench_model``'s lanes, 16-byte keys, 32-bit seqs)
+    sorted into R = 8 and R = 32 runs a shard outside the counted and
+    timed regions. Counted: ``merge_resolve_runs_kernel`` (K2 entered at
+    run length) and ``merge_sorted_lanes`` (K1 entered at run length) on
+    the 6-lane tree and on the tree with 4 payload lanes, at each R, with
+    every launch count set to 0 just before and read just after, each
+    call's CUDA launches against its plan (K2 6 and 8). Held, tolerance 0:
+    K2 at run length against the full-sort K2 (``merge_resolve_batched``)
+    and the plain versions (``merge_resolve_plain`` shard by shard and
+    the port's plain merge tree) on the same lanes; K1 at run length
+    against ``sort_lanes_plain`` segmented by shard and the plain tree.
+    Then edge shapes (``_merge_network_edges``). Returns the report, the
+    launches, each kernel's largest error and the prepared lanes, which
+    ``merge_network_timings`` times with the other kernels."""
+    import torch
+
+    from rocksplicator_tpu_torch.entry import bench_model
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.ops.bitonic_sort import (plan_sort,
+                                                          sort_lanes_plain)
+    from rocksplicator_tpu_torch.ops.compaction_kernel import (
+        merge_resolve_batched)
+    from rocksplicator_tpu_torch.ops.fused_resolve import plan_fused
+    from rocksplicator_tpu_torch.ops.merge_network import (
+        merge_lanes_plain, merge_resolve_runs_kernel,
+        merge_resolve_runs_plain, merge_sorted_lanes, runs_are_sorted)
+
+    t0 = time.time()
+    dev = torch.device(DEVICE)
+    _model, bench = bench_model(dev, shards=BENCH_SHARDS)
+    shards, cap = bench[1].shape
+    errs = {"fused_resolve": 0, "bitonic_sort": 0}
+    prepared = {}
+    for runs in MERGE_RUNS:
+        by_runs, by_shard = _presorted_runs(bench, runs)
+        if not runs_are_sorted(*(by_runs[i] for i in (0, 1, 2, 3, 7))):
+            raise AssertionError(f"merge_network R={runs}: runs not sorted")
+        prepared[runs] = (by_runs, by_shard)
+    torch.cuda.synchronize()
+
+    def k2_plan(runs):
+        return plan_fused(shards * cap, 2, 4, True, True, segment=cap,
+                          presorted=cap // runs)
+
+    def k1_plan(runs, lanes):
+        return plan_sort(shards * cap, 6, len(lanes) - 6, cap,
+                         presorted=cap // runs)
+
+    # ---- the path, counted: K2 and K1 entered at run length ------------
+    calls = []
+    outs = {}
+    _build.reset_launches()
+    for runs in MERGE_RUNS:
+        by_runs = prepared[runs][0]
+        outs[("k2", runs)] = merge_resolve_runs_kernel(*by_runs,
+                                                       **MERGE_FLAGS)
+        calls.append(("fused_resolve", runs, None,
+                      _build.CUDA_LAUNCHES["fused_resolve"],
+                      k2_plan(runs).launches))
+        for payload in (False, True):
+            lanes = _tree_lanes(by_runs, payload)
+            outs[("k1", runs, payload)] = merge_sorted_lanes(lanes, 6)
+            calls.append(("bitonic_sort", runs, payload,
+                          _build.CUDA_LAUNCHES["bitonic_sort"],
+                          k1_plan(runs, lanes).launches))
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in _build.KERNELS}
+    want_calls = {"fused_resolve": len(MERGE_RUNS),
+                  "bitonic_sort": 2 * len(MERGE_RUNS), "bloom_build": 0}
+    if launches != want_calls:
+        raise AssertionError(f"merge_network: kernel calls {launches}, the "
+                             f"path makes {want_calls}")
+    counted = {}
+    for name, runs, payload, got, plan in calls:
+        if got != plan:
+            raise AssertionError(f"merge_network {name} R={runs} payload="
+                                 f"{payload}: {got} CUDA launches, the "
+                                 f"plan says {plan}")
+        counted[(name, runs, payload)] = got
+    k2_launches = {r: counted[("fused_resolve", r, None)] for r in MERGE_RUNS}
+    if [k2_launches[r] for r in MERGE_RUNS] != [6, 8]:
+        raise AssertionError(f"merge_network: K2 launches {k2_launches}")
+
+    # ---- the holds, after the counts were read -------------------------
+    report = {"card": card, "shards": shards, "capacity": cap,
+              "flags": MERGE_FLAGS, "calls": launches, "runs": {}}
+    for runs in MERGE_RUNS:
+        by_runs, by_shard = prepared[runs]
+        got = outs[("k2", runs)]
+        held = {
+            "full_sort_k2": merge_resolve_batched(
+                *by_shard, sort_backend="fused", **MERGE_FLAGS),
+            "merge_resolve_plain": _shard_plain(by_shard),
+            "plain_tree": merge_resolve_runs_plain(*by_runs,
+                                                   **MERGE_FLAGS)}
+        for what, want in held.items():
+            errs["fused_resolve"] = max(errs["fused_resolve"],
+                                        compare_outputs(
+                got, want, f"merge_network K2 R={runs} vs {what}"))
+        k1_held = {}
+        for payload in (False, True):
+            lanes = _tree_lanes(by_runs, payload)
+            got1 = outs[("k1", runs, payload)]
+            flat = [x.reshape(-1) for x in lanes]
+            for what, want in (
+                    ("sort_lanes_plain", sort_lanes_plain(flat, 6, cap)),
+                    ("plain_tree", merge_lanes_plain(lanes, 6))):
+                err = max(max_abs_err(g.reshape(-1), w.reshape(-1))
+                          for g, w in zip(got1, want))
+                if err:
+                    raise AssertionError(
+                        f"merge_network K1 R={runs} payload={payload} vs "
+                        f"{what}: differs ({err})")
+                errs["bitonic_sort"] = max(errs["bitonic_sort"], err)
+            k1_held[f"lanes_{len(lanes)}"] = counted[("bitonic_sort", runs,
+                                                      payload)]
+        report["runs"][runs] = {
+            "runs": runs, "length": cap // runs,
+            "k2_cuda_launches_per_call": k2_launches[runs],
+            "k1_cuda_launches_per_call": k1_held,
+            "count": got["count"].tolist(),
+            "k2_held_against": sorted(held)}
+    report["edges"] = _merge_network_edges(errs)
+    report["seconds"] = time.time() - t0
+    return report, launches, errs, prepared
+
+
+def _shard_plain(args: tuple) -> dict:
+    """``merge_resolve_plain`` shard by shard over (S, C) lanes."""
+    import torch
+
+    from rocksplicator_tpu_torch.ops.compaction_kernel import (
+        merge_resolve_plain)
+
+    per = [merge_resolve_plain(*(x[s] for x in args), **MERGE_FLAGS)
+           for s in range(args[1].shape[0])]
+    return {k: torch.stack([o[k] for o in per]) for k in per[0]}
+
+
+def merge_network_timings(prepared: dict) -> tuple:
+    """K1 and K2 entered at run length on ``merge_network``'s lanes, each
+    beside the full sort of the same lanes (K1 segmented by shard, the
+    batched K2) and the plain versions (``sort_lanes_plain`` /
+    ``merge_resolve_plain`` shard by shard, and the port's plain merge
+    tree): the median of CUDA-event timed calls after warm-up, the
+    device time a call from torch.profiler, the CUDA launches of the
+    last timed call as its C entry point counted them (held against the
+    plan), and the bound (each input lane read once, each output written
+    once, over the HBM rate). Called with the other kernel timings,
+    after every phase, so the profiler first runs where it always has.
+    Returns (K1 rows, K2 rows)."""
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.ops.bitonic_sort import (
+        bitonic_sort_lanes, plan_sort, sort_lanes_plain)
+    from rocksplicator_tpu_torch.ops.compaction_kernel import (
+        merge_resolve_batched)
+    from rocksplicator_tpu_torch.ops.fused_resolve import plan_fused
+    from rocksplicator_tpu_torch.ops.merge_network import (
+        merge_lanes_plain, merge_resolve_runs_kernel,
+        merge_resolve_runs_plain, merge_sorted_lanes)
+
+    def mb(*ts) -> float:
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def timed(kernel: str, fn, reps: int, want: int, what: str) -> tuple:
+        """(ms, CUDA launches of the last timed call) of ``fn``; the
+        launches must be the plan's ``want``."""
+        ms = time_ms(fn, reps)
+        got = _build.CUDA_LAUNCHES[kernel]
+        if got != want:
+            raise AssertionError(f"{what}: {got} CUDA launches in one call, "
+                                 f"the plan says {want}")
+        return ms, got
+
+    k1_rows, k2_rows = [], []
+    for runs, (by_runs, by_shard) in prepared.items():
+        shards, cap = by_shard[1].shape
+        n, length = shards * cap, cap // runs
+        for payload in (False, True):
+            lanes = _tree_lanes(by_runs, payload)
+            flat = [x.reshape(-1) for x in lanes]
+            what = f"K1 timing R={runs} payload={payload}"
+            row = {"shape": f"merge network 8 x 2^17, R = {runs}, "
+                            f"{len(lanes)} lanes",
+                   "n": n, "lanes": len(lanes), "num_keys": 6,
+                   "segment": cap, "presorted": length, "reps": SHORT_REPS}
+            row["ms"], row["launches_per_call"] = timed(
+                "bitonic_sort", lambda: merge_sorted_lanes(lanes, 6),
+                SHORT_REPS, plan_sort(n, 6, len(lanes) - 6, cap,
+                                      presorted=length).launches, what)
+            row["device_ms"] = device_ms(lambda: merge_sorted_lanes(lanes, 6))
+            row["full_sort_ms"], row["full_sort_launches_per_call"] = timed(
+                "bitonic_sort", lambda: bitonic_sort_lanes(flat, 6, cap),
+                SHORT_REPS, plan_sort(n, 6, len(lanes) - 6, cap).launches,
+                what + " full sort")
+            row["full_sort_device_ms"] = device_ms(
+                lambda: bitonic_sort_lanes(flat, 6, cap))
+            row["plain_ms"] = time_ms(lambda: sort_lanes_plain(flat, 6, cap),
+                                      MERGE_PLAIN_REPS, 1)
+            row["plain_tree_ms"] = time_ms(
+                lambda: merge_lanes_plain(lanes, 6), MERGE_PLAIN_REPS, 1)
+            row["bound_ms"] = 2 * mb(*lanes) / HBM_BYTES_PER_S * 1e3
+            k1_rows.append(row)
+        kw, kl, _shi, slo, vt, vw, vl, valid = by_runs
+        out = merge_resolve_runs_kernel(*by_runs, **MERGE_FLAGS)
+        used = [kw[..., :4], kl, slo, vt, vw, vl, valid]
+        what = f"K2 timing R={runs}"
+        row = {"shape": f"merge network 8 x 2^17, R = {runs}", "n": n,
+               "shards": shards, "flags": MERGE_FLAGS, "presorted": length,
+               "reps": SHORT_REPS}
+        row["ms"], row["launches_per_call"] = timed(
+            "fused_resolve",
+            lambda: merge_resolve_runs_kernel(*by_runs, **MERGE_FLAGS),
+            SHORT_REPS, plan_fused(n, 2, 4, True, True, segment=cap,
+                                   presorted=length).launches, what)
+        row["device_ms"] = device_ms(lambda: merge_resolve_runs_kernel(
+            *by_runs, **MERGE_FLAGS))
+        row["full_sort_ms"], row["full_sort_launches_per_call"] = timed(
+            "fused_resolve", lambda: merge_resolve_batched(
+                *by_shard, sort_backend="fused", **MERGE_FLAGS), SHORT_REPS,
+            plan_fused(n, 2, 4, True, True, segment=cap).launches,
+            what + " full sort")
+        row["full_sort_device_ms"] = device_ms(lambda: merge_resolve_batched(
+            *by_shard, sort_backend="fused", **MERGE_FLAGS))
+        row["plain_ms"] = time_ms(lambda: _shard_plain(by_shard),
+                                  MERGE_PLAIN_REPS, 1)
+        row["plain_tree_ms"] = time_ms(lambda: merge_resolve_runs_plain(
+            *by_runs, **MERGE_FLAGS), MERGE_PLAIN_REPS, 1)
+        row["bound_ms"] = (mb(*used) + mb(*[
+            v for v in out.values() if v.dim()])) / HBM_BYTES_PER_S * 1e3
+        k2_rows.append(row)
+    return k1_rows, k2_rows
+
+
+# (n, segment, run length, key lanes, lanes) of K1's held edge cases: runs
+# of 1 and 64 rows (shorter than the tile: the full sort's plan), a tile,
+# a segment (one copy pass), the smallest sort, 15 keys, and 19 lanes (a
+# gather launch after the passes, through the index the last pass writes)
+MERGE_K1_EDGES = ((1 << 14, 1 << 14, 1, 2, 5), (1 << 14, 1 << 12, 64, 3, 4),
+                  (1 << 14, 1 << 12, 2048, 2, 19),
+                  (1 << 14, 1 << 12, 4096, 2, 3),
+                  (1 << 12, 1 << 12, 512, 15, 16), (256, 256, 256, 1, 2),
+                  (1 << 16, 1 << 16, 8192, 4, 6))
+# (shards, capacity, runs) of K2's: runs shorter than a tile, one run a
+# shard (a copy pass), two runs of a tile each, and one shard of 2^14
+MERGE_K2_EDGES = ((2, 2048, 8), (2, 2048, 1), (2, 4096, 2), (1, 1 << 14, 4))
+
+
+def _merge_network_edges(errs: dict) -> dict:
+    """K1 and K2 entered at run length at shapes the bench does not give:
+    runs shorter than the tile, a run as long as the segment, tied keys,
+    wide payloads; each call against its plan's CUDA launches and its
+    plain version (K1: ``sort_lanes_plain``, stable, so equal on ties;
+    K2: ``merge_resolve_plain`` shard by shard), tolerance 0. Flags off,
+    invalid rows and mixed ops (``synth_mixed_batch``)."""
+    import numpy as np
+    import torch
+
+    from rocksplicator_tpu_torch.models.compaction_model import (
+        FORWARD_ARGS, synth_mixed_batch)
+    from rocksplicator_tpu_torch.ops import _build
+    from rocksplicator_tpu_torch.ops.bitonic_sort import (
+        bitonic_sort_lanes, plan_sort, sort_lanes_plain)
+    from rocksplicator_tpu_torch.ops.compaction_kernel import (
+        merge_resolve_plain)
+    from rocksplicator_tpu_torch.ops.fused_resolve import plan_fused
+    from rocksplicator_tpu_torch.ops.lanes import lanes_from_numpy
+    from rocksplicator_tpu_torch.ops.merge_network import (
+        merge_resolve_runs_kernel)
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(19)
+    out = {"k1": [], "k2": []}
+    for n, seg, length, num_keys, lanes in MERGE_K1_EDGES:
+        cols = []
+        for i in range(lanes):
+            if i < num_keys:  # a 3-value alphabet: most rows tie
+                v = (rng.integers(0, 3, n).astype(np.uint32)
+                     | np.uint32(0x80000000) * np.uint32(i % 2))
+            else:
+                v = rng.integers(0, 1 << 32, n,
+                                 dtype=np.uint64).astype(np.uint32)
+            cols.append(v.reshape(-1, length))
+        for r in range(n // length):
+            order = np.lexsort([c[r] for c in reversed(cols[:num_keys])])
+            for c in cols:
+                c[r] = c[r][order]
+        t = lanes_from_numpy({str(i): c.reshape(-1)
+                              for i, c in enumerate(cols)}, dev)
+        ops = [t[str(i)] for i in range(lanes)]
+        got = bitonic_sort_lanes(ops, num_keys, seg, presorted=length)
+        plan = plan_sort(n, num_keys, lanes - num_keys, seg,
+                         presorted=length)
+        if _build.CUDA_LAUNCHES["bitonic_sort"] != plan.launches:
+            raise AssertionError(f"K1 edge {n, seg, length}: "
+                                 f"{_build.CUDA_LAUNCHES['bitonic_sort']} "
+                                 f"launches, plan {plan.launches}")
+        err = max(max_abs_err(g, w) for g, w in zip(
+            got, sort_lanes_plain(ops, num_keys, seg)))
+        errs["bitonic_sort"] = max(errs["bitonic_sort"], err)
+        if err:
+            raise AssertionError(f"K1 edge {n, seg, length}: differs ({err})")
+        out["k1"].append({"n": n, "segment": seg, "run_length": length,
+                          "presorted": plan.presorted,
+                          "num_keys": num_keys, "lanes": lanes,
+                          "tile_sorts": plan.tile_sorts,
+                          "passes": plan.passes,
+                          "launches_per_call":
+                              _build.CUDA_LAUNCHES["bitonic_sort"],
+                          "max_abs_err": err})
+    flags = dict(uniform_klen=False, seq32=False, key_words=6)
+    for shards, cap, runs in MERGE_K2_EDGES:
+        t = lanes_from_numpy({k: np.stack([synth_mixed_batch(
+            cap, seed=1900 + s, **flags)[k] for s in range(shards)])
+            for k in FORWARD_ARGS}, dev)
+        by_runs, by_shard = _presorted_runs(
+            tuple(t[k] for k in FORWARD_ARGS), runs, flags)
+        got = merge_resolve_runs_kernel(*by_runs, **flags)
+        plan = plan_fused(shards * cap, 2, segment=cap,
+                          presorted=cap // runs)
+        if _build.CUDA_LAUNCHES["fused_resolve"] != plan.launches:
+            raise AssertionError(f"K2 edge {shards, cap, runs}: "
+                                 f"{_build.CUDA_LAUNCHES['fused_resolve']} "
+                                 f"launches, plan {plan.launches}")
+        per = [merge_resolve_plain(*(x[s] for x in by_shard), **flags)
+               for s in range(shards)]
+        err = compare_outputs(got, {k: torch.stack([o[k] for o in per])
+                                    for k in per[0]},
+                              f"K2 edge {shards, cap, runs}")
+        errs["fused_resolve"] = max(errs["fused_resolve"], err)
+        out["k2"].append({"shards": shards, "capacity": cap, "runs": runs,
+                          "presorted": plan.sort.presorted,
+                          "tile_sorts": plan.sort.tile_sorts,
+                          "passes": plan.sort.passes,
+                          "launches_per_call":
+                              _build.CUDA_LAUNCHES["fused_resolve"],
+                          "counts": got["count"].tolist(),
+                          "max_abs_err": err})
+    return out
+
+
 def main() -> int:
     import os
 
@@ -7605,6 +8060,12 @@ def main() -> int:
     emit({"phase": "mesh_step", "elapsed_s": time.time() - _STARTED,
           **mesh_r})
 
+    # ---- 3c. the merge of pre-sorted runs: K1 and K2 at run length ----
+    mnet_r, mnet_launches, mnet_errs, mnet_lanes = merge_network(card)
+    for k, err in mnet_errs.items():
+        errs[k] = max(errs[k], err)
+    emit({"phase": "merge_network", **mnet_r})
+
     # ---- 4. known answers on a small batch ---------------------------
     pk = struct.Struct("<q").pack
     entries = [
@@ -7808,6 +8269,7 @@ def main() -> int:
     launches_by_path = {
         "main_path": launches,
         "mesh_step": mesh_launches,
+        "merge_network": mnet_launches,
         "engine_seam_job": {k: sum(c[k] for c in job_launches.values())
                             for k in sources},
         "engine_seam_subcompact": sub_launches,
@@ -8009,6 +8471,14 @@ def main() -> int:
         k2_row(f6_args[16], bflags, SHORT_REPS, "2^17, W = 16")]
     emit({"phase": "k1_k2_timings", "card": card, "k1": k1_rows,
           "k2": k2_rows})
+    # the merge network's rows, timed here with the other kernels, join
+    # the kernels line after the headline
+    mnet_k1, mnet_k2 = merge_network_timings(mnet_lanes)
+    del mnet_lanes
+    emit({"phase": "merge_network_timings", "card": card, "k1": mnet_k1,
+          "k2": mnet_k2})
+    k1_rows += mnet_k1
+    k2_rows += mnet_k2
 
     # the sort tile the plan picks (the largest) against the smaller ones
     # it could pick, which give more blocks but more merge passes: K1 and

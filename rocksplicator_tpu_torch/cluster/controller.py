@@ -25,6 +25,7 @@ from ..testing import failpoints as fp
 from ..utils.segment_utils import segment_to_db_name, db_name_to_partition_name
 from .coordinator import CoordinatorClient
 from .model import (
+    ERROR,
     FOLLOWER,
     LEADER,
     InstanceInfo,
@@ -41,6 +42,12 @@ log = logging.getLogger(__name__)
 
 _LEADERLIKE = {"LEADER", "MASTER"}
 _FOLLOWERLIKE = {"FOLLOWER", "SLAVE"}
+# seconds a leader this controller minted keeps the target while no
+# replica claims the partition: its promotion may be in flight (ROADMAP
+# F23). Past it, the pass re-targets the best-ranked serving replica, and
+# the late promotion, if it comes, finds another leader in the epoch
+# ledger and refuses.
+PROMOTION_GRACE = 10.0
 
 
 def _rendezvous(partition: str, instance_id: str) -> int:
@@ -93,6 +100,7 @@ def assign_resource(
     epochs: Dict[str, Dict],
     pins: Optional[Dict[str, PlacementPin]] = None,
     splits: Optional[List[SplitRecord]] = None,
+    promoting: Optional[Set[str]] = None,
 ) -> Set[str]:
     """Compute one resource's target assignments (pure — no coordinator
     I/O, so the two-phase handoff edges are directly unit-testable).
@@ -122,7 +130,13 @@ def assign_resource(
     removed resource's — while each child is assigned like any
     partition. The split cutover pre-seeded the children's epoch ledger
     and pins, so the first child pass finds a recorded leader matching
-    the pinned preferred leader and mints nothing."""
+    the pinned preferred leader and mints nothing.
+
+    ``promoting`` holds the partitions whose ledger leader was minted
+    less than ``PROMOTION_GRACE`` ago: while no replica claims such a
+    partition, its ledger leader stays the target if placed and not in
+    ERROR, as its promotion may be in flight (ROADMAP F23). None is the
+    reference's rule."""
     leader_state, follower_state = _state_names(resource.state_model)
     changed: Set[str] = set()
     iids = sorted(instances)
@@ -184,6 +198,17 @@ def assign_resource(
             target_leader = preferred
         elif live_leader in replicas:
             target_leader = live_leader
+        elif (live_leader is None and partition in (promoting or ())
+              and recorded_leader in replicas
+              and current.get(recorded_leader, {}).get(partition)
+              != ERROR):
+            # the ledger's leader was minted within the grace, is placed
+            # and has not failed, so its promotion may still be in
+            # flight: minting another leader now flaps leadership
+            # (ROADMAP F23; the port's repair, the reference re-targets
+            # the best-ranked serving replica). A failed promotion
+            # reports ERROR, and the next pass moves on.
+            target_leader = recorded_leader
         else:
             serving = [
                 iid for iid in replicas
@@ -223,6 +248,21 @@ def assign_resource(
     return changed
 
 
+def in_grace(minted: Dict[str, Tuple[int, float]],
+             epochs: Dict[str, Dict], now: float) -> Set[str]:
+    """The partitions whose ledger record is still the one minted (epoch,
+    time) in ``minted`` less than ``PROMOTION_GRACE`` before ``now``;
+    drops every other entry of ``minted``."""
+    out: Set[str] = set()
+    for partition, (epoch, at) in list(minted.items()):
+        rec = epochs.get(partition) or {}
+        if now - at < PROMOTION_GRACE and int(rec.get("epoch", 0)) == epoch:
+            out.add(partition)
+        else:
+            del minted[partition]
+    return out
+
+
 class Controller:
     def __init__(
         self,
@@ -246,6 +286,9 @@ class Controller:
         # "shard-map convergence within a bounded number of controller
         # passes" invariant reads this
         self.passes = 0
+        # partition -> (epoch, monotonic time) of the ledger records this
+        # controller minted, for ``promoting``
+        self._minted: Dict[str, Tuple[int, float]] = {}
         self._thread = threading.Thread(
             target=self._run, name=f"controller-{controller_id}", daemon=True
         )
@@ -315,6 +358,7 @@ class Controller:
             iid: {} for iid in instances
         }
         changed: Set[str] = set()
+        promoting = in_grace(self._minted, epochs, time.monotonic())
         for seg in self.coord.list(self._path("resources")):
             raw = self.coord.get_or_none(self._path("resources", seg))
             if raw is None:
@@ -322,12 +366,15 @@ class Controller:
             resource = ResourceDef.decode(raw)
             changed |= assign_resource(
                 resource, instances, current, per_instance, epochs,
-                pins=pins, splits=splits)
+                pins=pins, splits=splits, promoting=promoting)
         for partition in sorted(changed):
             mine = epochs[partition]
             merged = self._persist_epoch(partition, mine)
             if merged is None:
-                continue  # our record landed
+                # our record landed
+                self._minted[partition] = (int(mine["epoch"]),
+                                           time.monotonic())
+                continue
             # A peer controller outran us on the ledger. If it minted the
             # SAME record we did, the race was harmless — publish. If it
             # recorded a DIFFERENT leader (or a further epoch), publishing

@@ -304,7 +304,8 @@ class Participant:
                 return
             state = plan_from
             for a, b in steps:
-                log.info("%s: %s -> %s", partition, a, b)
+                log.info("%s: %s: %s -> %s", self.instance.instance_id,
+                         partition, a, b)
                 model.transition(a, b)
                 state = b
                 self._set_current(partition, state)

@@ -245,8 +245,8 @@ class LeaderFollowerStateModel(StateModel):
                        epoch: Optional[int] = None) -> None:
         """The promotion's data steps, under the partition lock: read
         every live serving replica's seq, catch up from the highest,
-        apply the 3-node-failure guard, reopen as LEADER and checkpoint
-        the seq.
+        apply the 3-node-failure guard, check that the epoch ledger still
+        names this replica, reopen as LEADER and checkpoint the seq.
         ``epoch`` None stamps the controller-minted epoch as each step
         reads it and checkpoints the local seq, as the reference's
         promotion does; an explicit ``epoch`` (a re-promotion) stamps
@@ -318,6 +318,19 @@ class LeaderFollowerStateModel(StateModel):
             raise TransitionError(
                 f"{self.partition}: local seq {local} too far behind "
                 f"last leader seq {persisted}; refusing promotion"
+            )
+        # a promotion from a superseded assignment: the controller
+        # minted another replica's epoch after it issued this one (the
+        # leadership flapped while this promotion was in flight).
+        # Promoting anyway makes a second leader whose acked writes the
+        # ledger's leader never holds, and which its followers then
+        # clear as a diverged suffix. Refuse and replan (ROADMAP F23;
+        # the port's repair, the reference promotes)
+        _ledger_epoch, ledger_leader = ctx.epoch_ledger(self.partition)
+        if ledger_leader not in (None, ctx.instance.instance_id):
+            raise TransitionError(
+                f"{self.partition}: the epoch ledger names "
+                f"{ledger_leader}; {retry}"
             )
         # the promotion carries the controller-minted epoch: every
         # ack this leader hands out is stamped with it, and any

@@ -13,7 +13,9 @@ gathered once through the index: 16 lanes by the last launch, any more in
 with at most 16 key lanes and any number of payload lanes; any other
 shape raises. With ``segment`` (a shard axis) the rows are N / segment
 shards sorted each on its own: the merge passes stop at runs of
-``segment`` rows. On CPU tensors it runs
+``segment`` rows. With ``presorted`` (a power of two L) each aligned run
+of L rows arrives sorted, and the sort enters at run length
+(``plan_sort``): the merge network's runs. On CPU tensors it runs
 ``sort_lanes_plain``, the plain PyTorch version: a stable LSD sequence of
 ``torch.sort`` passes over the widened key lanes.
 
@@ -42,7 +44,7 @@ SMEM_LIMIT = 232448    # shared memory one block may use on Hopper
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "rs_bitonic_sort": (_P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "rs_bitonic_sort": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         ctypes.c_int64, _P, _P, ctypes.POINTER(_I), _P),
 }
 
@@ -61,6 +63,8 @@ class SortPlan:
     smem_bytes: int     # dynamic shared memory a launch may take
     scratch_words: int  # ping-pong buffer words, then the index lane
     launches: int       # CUDA launches of one sort
+    presorted: int = 0  # rows of each aligned run that arrive sorted
+    tile_sorts: int = 1  # tile_sort launches: 0 when runs span a tile
 
 
 def supported(n: int) -> bool:
@@ -76,7 +80,8 @@ def gather_launches(num_payload: int) -> int:
 
 
 def plan_sort(n: int, num_keys: int, num_payload: int,
-              segment: Optional[int] = None) -> SortPlan:
+              segment: Optional[int] = None,
+              presorted: Optional[int] = None) -> SortPlan:
     """The plan for sorting ``num_keys`` key lanes of N rows with
     ``num_payload`` payload lanes, each aligned run of ``segment`` rows on
     its own (default: all N). The tile is as large as a block takes (2048
@@ -84,8 +89,16 @@ def plan_sort(n: int, num_keys: int, num_payload: int,
     give one block per SM or more, at N = 2^17 and by far at 2^22
     (chip_smoke.py tile_sweep, PERF.md), as each merge pass it saves
     costs more than the SMs it leaves idle in the tile sort. Each merge
-    block owns as many rows as a tile. Raises ``ValueError`` for a shape
-    the kernels do not take."""
+    block owns as many rows as a tile.
+
+    ``presorted`` = L says each aligned run of L rows (a power of two, at
+    most the segment) arrives sorted by the key lanes. With L >= the tile
+    there is no tile_sort launch and log2(segment / L) merge passes, the
+    first reading runs of L rows from the key lanes themselves (at least
+    one pass, a copy when L is the segment); with L < the tile the plan
+    is the full sort's (``presorted`` 0), which is exact on sorted runs as
+    it is stable. ``None`` is the full sort's plan. Raises ``ValueError``
+    for a shape the kernels do not take."""
     if not supported(n):
         raise ValueError(f"the sort needs a power-of-two N >= {MIN_TILE}, "
                          f"got {n}")
@@ -97,16 +110,29 @@ def plan_sort(n: int, num_keys: int, num_payload: int,
         raise ValueError(f"the sort takes 1..{MAX_LANES} key lanes and "
                          f"any number of payload lanes, got {num_keys} "
                          f"keys and {num_payload} payload lanes")
+    if presorted is not None and (presorted < 1 or presorted & (
+            presorted - 1) or presorted > segment):
+        raise ValueError(f"presorted runs must be a power of two of at "
+                         f"most the segment ({segment}), got {presorted}")
     tile = min(segment, MAX_TILE)
-    passes = (segment // tile).bit_length() - 1
+    if presorted is not None and presorted < tile:
+        presorted = None
+    tiled = presorted is None
+    first = tile if tiled else presorted
+    passes = (segment // first).bit_length() - 1
+    if not tiled:
+        passes = max(passes, 1)
     gathers = gather_launches(num_payload)
+    # a buffer for each launch that does not write the outputs, at most 2
+    buffers = min(passes if tiled else passes - 1, 2)
     return SortPlan(
         n=n, num_keys=num_keys, num_payload=num_payload, tile=tile,
         chunk=tile, passes=passes, segment=segment, gathers=gathers,
         smem_bytes=(num_keys + 2) * tile * 4,
-        scratch_words=(min(passes, 2) * (num_keys + 1) * n
+        scratch_words=(buffers * (num_keys + 1) * n
                        + (n if gathers else 0)),
-        launches=1 + passes + gathers)
+        launches=int(tiled) + passes + gathers,
+        presorted=presorted or 0, tile_sorts=int(tiled))
 
 
 def sort_lanes_plain(operands: Sequence[torch.Tensor], num_keys: int,
@@ -143,13 +169,16 @@ def _check(operands: Sequence[torch.Tensor], num_keys: int) -> None:
 
 
 def bitonic_sort_lanes(operands: Sequence[torch.Tensor], num_keys: int,
-                       segment: Optional[int] = None
+                       segment: Optional[int] = None,
+                       presorted: Optional[int] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """Sort (N,) int32 lanes by their first ``num_keys`` lanes (unsigned,
     lexicographic, stable), each aligned run of ``segment`` rows on its own
-    when given (rows never leave their segment). CPU tensors: the plain
-    version. CUDA tensors: kernel K1, or ``ValueError`` for a shape it
-    cannot take."""
+    when given (rows never leave their segment). ``presorted`` = L promises
+    that each aligned run of L rows is sorted already; the kernel then
+    merges from runs of L (a promise broken gives rows out of order). CPU
+    tensors: the plain version. CUDA tensors: kernel K1, or
+    ``ValueError`` for a shape it cannot take."""
     operands = list(operands)
     _check(operands, num_keys)
     dev = operands[0].device
@@ -158,7 +187,7 @@ def bitonic_sort_lanes(operands: Sequence[torch.Tensor], num_keys: int,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     n, lanes = operands[0].shape[0], len(operands)
-    plan = plan_sort(n, num_keys, lanes - num_keys, segment)
+    plan = plan_sort(n, num_keys, lanes - num_keys, segment, presorted)
     ins = [x.contiguous() for x in operands]
     out = torch.empty((lanes, n), dtype=torch.int32, device=dev)
     scratch = torch.empty(max(plan.scratch_words, 1), dtype=torch.int32,
@@ -170,7 +199,7 @@ def bitonic_sort_lanes(operands: Sequence[torch.Tensor], num_keys: int,
     with torch.cuda.device(dev):
         rc = lib.rs_bitonic_sort(
             in_ptrs, lanes, num_keys, n, plan.tile, plan.chunk, plan.passes,
-            plan.segment, plan.smem_bytes, plan.scratch_words,
+            plan.segment, plan.presorted, plan.smem_bytes, plan.scratch_words,
             scratch.data_ptr(),
             out_ptrs, ctypes.byref(launches), _build.stream_ptr(dev))
     _build.check(lib, rc, f"bitonic_sort {plan}")

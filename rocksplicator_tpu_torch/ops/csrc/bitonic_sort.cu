@@ -18,20 +18,24 @@ const char* rs_error_string(int err) {
 // ins / outs: host arrays of num_lanes device pointers to (n,) u32 lanes;
 // the first num_keys (at most 16) are the keys, the payload lanes may be
 // any number. With segment < n each aligned run of `segment` rows sorts on
-// its own. The plan comes from the wrapper (ops/bitonic_sort.py
+// its own. With presorted = L > 0 each aligned run of L rows arrives sorted
+// (the merge network's runs): for L >= the tile the first merge pass reads
+// the key lanes in `ins` directly, the row index implicit, so no launch
+// comes before it. The plan comes from the wrapper (ops/bitonic_sort.py
 // plan_sort); scratch holds its scratch_words: the sort buffers, then the
 // index lane when the payload spans more than one gather group. Adds the
 // CUDA launches it makes to *launches.
 int rs_bitonic_sort(void* const* ins, int num_lanes, int num_keys, int n,
-                    int tile, int chunk, int passes, int segment, int smem,
-                    int64_t scratch_words, void* scratch, void* const* outs,
-                    int* launches, void* stream) {
+                    int tile, int chunk, int passes, int segment,
+                    int presorted, int smem, int64_t scratch_words,
+                    void* scratch, void* const* outs, int* launches,
+                    void* stream) {
   if (num_lanes < 1 || num_keys < 1 || num_keys > rs::kMaxLanes ||
       num_keys > num_lanes)
     return rs::kErrShape;
   const rs::SortPlan plan{n,      num_keys, num_lanes - num_keys, tile,
                           chunk,  passes,   segment,              smem,
-                          scratch_words};
+                          scratch_words, presorted};
   if (!rs::plan_ok(plan)) return rs::kErrPlan;
   rs::LaneIn keys{};
   rs::LaneOut out{};

@@ -4,13 +4,15 @@
 // Replaces rocksplicator_tpu/ops/pallas_resolve.py fused_merge_resolve (the
 // pallas_call at :277), whose body _fused_kernel keeps every lane in VMEM
 // and expresses scans and fills as shift ladders. Here one call is 4 +
-// passes (+ gathers) CUDA launches on one stream:
+// passes (+ gathers) CUDA launches on one stream (3 + passes when the runs
+// arrive sorted a tile long or more):
 //   0. one cudaMemsetAsync of the status words (tile counter, per-shard
 //      meta, look-back flags);
 //   1. build_keys: the composite key lanes (invalid, key words, [klen],
 //      [~seq_hi], ~seq_lo) and each shard's uniform-klen constant (max key
 //      length over its valid rows);
-//   2. the K1 merge sort (merge_sort.cuh) over those keys and a row index;
+//   2. the K1 merge sort (merge_sort.cuh) over those keys and a row index
+//      (entered at run length when the runs arrive sorted: no tile_sort);
 //      its last launch gathers the payload (vtype, val_len, value words)
 //      straight from the inputs into sorted order, 16 lanes of it, and
 //      gather_lanes launches move the rest of a wide value 16 lanes at a
@@ -612,15 +614,18 @@ const char* rs_error_string(int err) {
 // (the tile counter, then per shard: count, overflow flag, uniform key
 // length, unused; then the look-back flags), look-back values, the sorted
 // lanes, two sort buffers, and the index lane when the value words span
-// more than one gather group. Adds the CUDA launches it makes (the memset
-// included) to *launches.
+// more than one gather group. With presorted = L > 0 each aligned run of L
+// rows of a shard arrives sorted by the composite key (the merge network's
+// runs): the sort enters at run length (merge_sort.cuh), its first merge
+// pass reading the built key lanes with the row index implicit. Adds the
+// CUDA launches it makes (the memset included) to *launches.
 int rs_fused_merge_resolve(
     const void* kw_be, const void* key_len, const void* seq_hi,
     const void* seq_lo, const void* vtype, const void* val_words,
     const void* val_len, const void* valid, int n, int n_val_words,
     int key_words, int uniform_klen, int seq32, int uint64_add,
     int drop_tombstones, int segment, int tile, int chunk, int passes,
-    int smem, int64_t scratch_words, void* o_kw_be, void* o_kw_le,
+    int presorted, int smem, int64_t scratch_words, void* o_kw_be, void* o_kw_le,
     void* o_key_len, void* o_seq_hi, void* o_seq_lo, void* o_vtype,
     void* o_val_words, void* o_val_len, void* scratch, int* launches,
     void* stream) {
@@ -644,7 +649,7 @@ int rs_fused_merge_resolve(
     return rs::kErrScratch;
   const rs::SortPlan plan{n,     L.num_keys, num_payload, tile,
                           chunk, passes,     segment,     smem,
-                          buf_words + index_words};
+                          buf_words + index_words,    presorted};
   if (!rs::plan_ok(plan)) return rs::kErrPlan;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);

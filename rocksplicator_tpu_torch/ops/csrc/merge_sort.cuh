@@ -33,6 +33,19 @@
 // own and no row leaves its segment — S shards of capacity C sort in one
 // call as S * C rows with segment C. The tile is at most the segment.
 //
+// Runs that arrive sorted (presorted = L, the counterpart of
+// rocksplicator_tpu/ops/merge_network.py): each aligned run of L rows is
+// already in key order, and a stable merge of sorted runs is the stable
+// sort of their concatenation, so the sort enters at run length L:
+//   * L >= tile: no tile_sort launch; log2(segment / L) merge passes, the
+//     first reading runs of L rows straight from the caller's key lanes
+//     (LaneRuns) with the row index implicit (a row's index is the row),
+//     so no launch copies keys or writes an index lane first; a run as
+//     long as the segment still takes one pass (a copy, its partner run
+//     empty) to reach the sink;
+//   * L < tile: the full sort's plan (presorted 0): a stable sort is exact
+//     on sorted runs, and a tile_sort launch stays either way.
+//
 // The plan (tile, chunk, passes, segment, shared-memory bytes, scratch) is
 // computed by the Python wrapper (ops/bitonic_sort.py plan_sort) and
 // checked here.
@@ -86,6 +99,7 @@ struct LaneOut {
 struct SortPlan {
   int n, num_keys, num_payload, tile, chunk, passes, segment, smem;
   int64_t scratch_words;
+  int presorted;  // rows of each aligned run that arrive sorted; 0: none
 };
 
 // A payload lane: row r of the source at p[r * stride], its sorted lane
@@ -299,18 +313,39 @@ __global__ void __launch_bounds__(kMaxTile / kItems)
   }
 }
 
-// True when global row b orders strictly before global row a. Every key
-// word of both rows is loaded before the first compare, so a compare costs
-// one memory latency, not one per equal leading lane.
-__device__ __forceinline__ bool global_less(const uint32_t* src, int n,
-                                            int num_keys, int64_t b,
-                                            int64_t a) {
+// Where a merge pass reads its sorted runs. BufRuns: the num_keys + 1
+// lanes the previous launch wrote (lane l at p + l * n, the row-index lane
+// last). LaneRuns: the caller's key lanes, runs that arrived sorted, with
+// no index lane: a row's index is the row itself.
+struct BufRuns {
+  static constexpr bool kIndexLane = true;
+  const uint32_t* p;
+  int n;
+  __device__ __forceinline__ const uint32_t* at(int l, int64_t row) const {
+    return p + (int64_t)l * n + row;
+  }
+};
+
+struct LaneRuns {
+  static constexpr bool kIndexLane = false;
+  LaneIn in;
+  __device__ __forceinline__ const uint32_t* at(int l, int64_t row) const {
+    return in.p[l] + row * in.stride[l];
+  }
+};
+
+// True when row b orders strictly before row a. Every key word of both
+// rows is loaded before the first compare, so a compare costs one memory
+// latency, not one per equal leading lane.
+template <class Src>
+__device__ __forceinline__ bool global_less(const Src& src, int num_keys,
+                                            int64_t b, int64_t a) {
   uint32_t x[kMaxLanes], y[kMaxLanes];
 #pragma unroll
   for (int l = 0; l < kMaxLanes; ++l) {
     if (l < num_keys) {
-      x[l] = __ldg(src + (int64_t)l * n + b);
-      y[l] = __ldg(src + (int64_t)l * n + a);
+      x[l] = __ldg(src.at(l, b));
+      y[l] = __ldg(src.at(l, a));
     }
   }
 #pragma unroll
@@ -319,33 +354,36 @@ __device__ __forceinline__ bool global_less(const uint32_t* src, int n,
   return false;
 }
 
-// One merge pass: sorted runs of `run` rows in `src` (num_keys + 1 lanes
-// of n) merge pairwise; block b writes output rows [b * chunk, +chunk).
-// Shared memory: num_keys + 1 lanes of `chunk` words, then `chunk` words of
-// source positions.
+// One merge pass: each sorted run of `run` rows in `src` merges with the
+// run of `runb` rows after it (runb = run; 0 when a run fills its
+// segment, which makes the pass a copy); block b writes output rows
+// [b * chunk, +chunk). Shared memory: num_keys + 1 lanes of `chunk` words,
+// then `chunk` words of source positions.
+template <class Src>
 __global__ void __launch_bounds__(kMaxTile / kItems)
-    merge_pass(const uint32_t* __restrict__ src, int num_keys, int n,
-               int run, int chunk, Sink sink) {
+    merge_pass(Src src, int num_keys, int n, int run, int runb, int chunk,
+               Sink sink) {
   extern __shared__ uint32_t smem[];
   __shared__ int split[2];
   const int lanes = num_keys + 1;
   uint32_t* sidx = smem + (int64_t)lanes * chunk;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int64_t c0 = (int64_t)blockIdx.x * chunk;
-  const int64_t ps = c0 / (2 * (int64_t)run) * (2 * (int64_t)run);
+  const int64_t span = (int64_t)run + runb;
+  const int64_t ps = c0 / span * span;
   const int d0 = (int)(c0 - ps);
 
   // The first warp finds where the chunk starts, the last where it ends.
   auto g_before = [&](int i, int j) {
-    return global_less(src, n, num_keys, ps + run + j, ps + i);
+    return global_less(src, num_keys, ps + run + j, ps + i);
   };
   const int warp = tid >> 5, last_warp = (nt - 1) >> 5;
   if (warp == 0) {
-    const int a = warp_merge_path(d0, run, run, g_before);
+    const int a = warp_merge_path(d0, run, runb, g_before);
     if (tid == 0) split[0] = a;
   }
   if (warp == last_warp) {
-    const int a = warp_merge_path(d0 + chunk, run, run, g_before);
+    const int a = warp_merge_path(d0 + chunk, run, runb, g_before);
     if (tid == nt - 1) split[1] = a;
   }
   __syncthreads();
@@ -353,12 +391,16 @@ __global__ void __launch_bounds__(kMaxTile / kItems)
   const int b0 = d0 - a0, b1 = d0 + chunk - a1;
   const int na = a1 - a0, nb = b1 - b0;
   for (int l = 0; l < lanes; ++l) {
-    const uint32_t* s = src + (int64_t)l * n + ps;
     uint32_t* dst = smem + l * chunk;
+    if (!Src::kIndexLane && l == num_keys) {
+      for (int r = tid; r < chunk; r += nt)
+        dst[r] = (uint32_t)(ps + (r < na ? a0 + r : run + b0 + (r - na)));
+      continue;
+    }
     for (int r = tid; r < chunk; r += nt)
-      __pipeline_memcpy_async(dst + r,
-                              r < na ? s + a0 + r : s + run + b0 + (r - na),
-                              sizeof(uint32_t));
+      __pipeline_memcpy_async(
+          dst + r, src.at(l, ps + (r < na ? a0 + r : run + b0 + (r - na))),
+          sizeof(uint32_t));
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
@@ -411,10 +453,26 @@ inline int gather_launches(int num_payload) {
   return num_payload > kGroup ? (num_payload - 1) / kGroup : 0;
 }
 
-// Words of ping-pong buffer the plan needs: none when the tile sort is the
-// last launch, one buffer for a single merge pass, two beyond.
+// True when the sort starts with tile_sort: no presorted runs.
+inline bool tile_first(const SortPlan& p) { return p.presorted == 0; }
+
+// Rows of each sorted run the first merge pass reads.
+inline int first_run(const SortPlan& p) {
+  return tile_first(p) ? p.tile : p.presorted;
+}
+
+// Merge passes from the first run to the segment; at least one when no
+// tile_sort writes the sink.
+inline int plan_passes(const SortPlan& p) {
+  const int k = log2_exact(p.segment / first_run(p));
+  return tile_first(p) || k > 0 ? k : 1;
+}
+
+// Words of ping-pong buffer the plan needs: one buffer for each launch
+// that does not write the sink, at most two.
 inline int64_t sort_buffer_words(const SortPlan& p) {
-  const int bufs = p.passes < 2 ? p.passes : 2;
+  const int writes = tile_first(p) ? p.passes : p.passes - 1;
+  const int bufs = writes < 2 ? writes : 2;
   return (int64_t)bufs * (p.num_keys + 1) * p.n;
 }
 
@@ -430,7 +488,10 @@ inline bool plan_ok(const SortPlan& p) {
          pow2(p.segment) && p.segment >= kMinTile && p.segment <= p.n &&
          pow2(p.tile) && p.tile >= kMinTile && p.tile <= kMaxTile &&
          p.tile <= p.segment && pow2(p.chunk) && p.chunk >= kMinTile &&
-         p.chunk <= p.tile && p.passes == log2_exact(p.segment / p.tile) &&
+         p.chunk <= p.tile &&
+         (p.presorted == 0 || (pow2(p.presorted) && p.presorted >= p.tile &&
+                               p.presorted <= p.segment)) &&
+         p.passes == plan_passes(p) &&
          p.smem >= sort_smem_bytes(p.num_keys, p.tile) &&
          p.smem <= kDynSmemMax &&
          p.scratch_words >= sort_buffer_words(p) + sort_index_words(p);
@@ -445,8 +506,12 @@ static cudaError_t sort_attributes_once() {
     cudaError_t e = cudaFuncSetAttribute(
         tile_sort, cudaFuncAttributeMaxDynamicSharedMemorySize, kDynSmemMax);
     if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(merge_pass<BufRuns>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDynSmemMax);
+    if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(
-        merge_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        merge_pass<LaneRuns>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kDynSmemMax);
   }();
   return err;
@@ -477,19 +542,34 @@ inline cudaError_t merge_sort_device(const LaneIn& keys, const LaneOut& out,
     sink.pay_out.p[q] = pay[q].out;
   }
   sink.index = gathers ? index : nullptr;
-  sink.final_ = p.passes == 0;
-  sink.buf = bufs[0];
-  tile_sort<<<p.n / p.tile, p.tile / kItems,
-              sort_smem_bytes(p.num_keys, p.tile), stream>>>(
-      keys, p.num_keys, p.n, p.tile, sink);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ++*launches;
+  // with tile_sort first, pass k reads buffer k % 2 and writes the other;
+  // without it, pass 0 reads the caller's key lanes and pass k writes
+  // buffer k % 2
+  const bool tiled = tile_first(p);
+  const int shift = tiled ? 1 : 0;
+  if (tiled) {
+    sink.final_ = p.passes == 0;
+    sink.buf = bufs[0];
+    tile_sort<<<p.n / p.tile, p.tile / kItems,
+                sort_smem_bytes(p.num_keys, p.tile), stream>>>(
+        keys, p.num_keys, p.n, p.tile, sink);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ++*launches;
+  }
   for (int pass = 0; pass < p.passes; ++pass) {
     sink.final_ = pass == p.passes - 1;
-    sink.buf = bufs[(pass + 1) & 1];
-    merge_pass<<<p.n / p.chunk, p.chunk / kItems,
-                 sort_smem_bytes(p.num_keys, p.chunk), stream>>>(
-        bufs[pass & 1], p.num_keys, p.n, p.tile << pass, p.chunk, sink);
+    sink.buf = bufs[(pass + shift) & 1];
+    const int run = first_run(p) << pass;
+    const int runb = run < p.segment ? run : 0;
+    const int blocks = p.n / p.chunk, threads = p.chunk / kItems;
+    const int smem = sort_smem_bytes(p.num_keys, p.chunk);
+    if (!tiled && pass == 0)
+      merge_pass<LaneRuns><<<blocks, threads, smem, stream>>>(
+          LaneRuns{keys}, p.num_keys, p.n, run, runb, p.chunk, sink);
+    else
+      merge_pass<BufRuns><<<blocks, threads, smem, stream>>>(
+          BufRuns{bufs[(pass + 1 + shift) & 1], p.n}, p.num_keys, p.n, run,
+          runb, p.chunk, sink);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ++*launches;
   }

@@ -18,7 +18,9 @@ width W >= 1 (the sort gathers 2 + W payload lanes, 16 at a time), and
 raises for anything else. With ``segment`` the N rows are N / segment
 shards of ``segment`` rows, each merged and resolved on its own in the
 same launches (the counterpart of ``jax.vmap(merge_resolve_kernel)``);
-``count`` and ``needs_cpu_fallback`` are then (S,). ``plan_fused``
+``count`` and ``needs_cpu_fallback`` are then (S,). With ``presorted``
+each aligned run of that many rows arrives sorted and the sort enters at
+run length (``ops/merge_network.py``). ``plan_fused``
 computes the launch plan, the scratch size and the launch count; the C
 entry point checks the plan and counts its launches.
 """
@@ -39,7 +41,7 @@ from .kv_format import KEY_WORDS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "rs_fused_merge_resolve": (_P,) * 8 + (_I,) * 12 + (ctypes.c_int64,)
+    "rs_fused_merge_resolve": (_P,) * 8 + (_I,) * 13 + (ctypes.c_int64,)
     + (_P,) * 9 + (ctypes.POINTER(_I), _P),
 }
 RESOLVE_ROWS = 2048    # rows of a resolve_compact block (256 threads x 8)
@@ -88,9 +90,12 @@ def _round4(words: int) -> int:
 
 def plan_fused(n: int, n_val_words: int, key_words: int = KEY_WORDS,
                uniform_klen: bool = False, seq32: bool = False,
-               segment: Optional[int] = None) -> FusedPlan:
+               segment: Optional[int] = None,
+               presorted: Optional[int] = None) -> FusedPlan:
     """K2's plan for N rows in shards of ``segment`` rows (default: one
-    shard); raises ``ValueError`` for a shape it cannot take."""
+    shard), with each aligned run of ``presorted`` rows arriving sorted by
+    the composite key when given (the sort enters at run length:
+    ``plan_sort``); raises ``ValueError`` for a shape it cannot take."""
     segment = n if segment is None else segment
     lanes = sort_lane_count(n_val_words, key_words, uniform_klen, seq32)
     if not fused_supported(n, n_val_words, segment):
@@ -99,7 +104,7 @@ def plan_fused(n: int, n_val_words: int, key_words: int = KEY_WORDS,
             f"(segment <= N) and W >= 1, got N={n}, segment={segment}, "
             f"W={n_val_words}")
     num_keys = lanes - 2 - n_val_words
-    sort = plan_sort(n, num_keys, lanes - num_keys, segment)
+    sort = plan_sort(n, num_keys, lanes - num_keys, segment, presorted)
     shards = n // segment
     rows = min(segment, RESOLVE_ROWS)
     tiles = n // rows
@@ -119,19 +124,23 @@ def fused_merge_resolve(key_words_be, key_len, seq_hi, seq_lo, vtype,
                         drop_tombstones: bool = True,
                         uniform_klen: bool = False, seq32: bool = False,
                         key_words: int = KEY_WORDS,
-                        segment: Optional[int] = None
+                        segment: Optional[int] = None,
+                        presorted: Optional[int] = None
                         ) -> Dict[str, torch.Tensor]:
     """Merge-resolve in kernel K2 on CUDA tensors; raises for any other
     device. Same output dict as ``merge_resolve_kernel``, which checks the
     lanes and sends CPU tensors to the plain version. With ``segment`` the
     rows are shards of ``segment`` rows, each resolved on its own (shard s
     at rows [s * segment, + count[s])), and ``count`` and
-    ``needs_cpu_fallback`` are (S,) tensors."""
+    ``needs_cpu_fallback`` are (S,) tensors. ``presorted`` = L promises
+    that each aligned run of L rows is sorted by the composite key (key
+    asc, seq desc, valid rows a prefix): the merge network's runs."""
     dev = seq_lo.device
     if dev.type != "cuda":
         raise ValueError(f"K2 runs on CUDA tensors, got {dev}")
     n, w = val_words.shape
-    plan = plan_fused(n, w, key_words, uniform_klen, seq32, segment)
+    plan = plan_fused(n, w, key_words, uniform_klen, seq32, segment,
+                      presorted)
     sp = plan.sort
     lib = _build.load("fused_resolve", _SIGNATURES)
     ins = [x.contiguous() for x in (key_words_be, key_len, seq_hi, seq_lo,
@@ -151,7 +160,8 @@ def fused_merge_resolve(key_words_be, key_len, seq_hi, seq_lo, vtype,
             *[x.data_ptr() for x in ins], n, w, key_words,
             int(uniform_klen), int(seq32),
             int(merge_kind is MergeKind.UINT64_ADD), int(drop_tombstones),
-            sp.segment, sp.tile, sp.chunk, sp.passes, sp.smem_bytes,
+            sp.segment, sp.tile, sp.chunk, sp.passes, sp.presorted,
+            sp.smem_bytes,
             plan.scratch_words,
             *[t.data_ptr() for t in out.values()], scratch.data_ptr(),
             ctypes.byref(launches), _build.stream_ptr(dev))

@@ -73,8 +73,8 @@ RANKS = {
     "rocksplicator_tpu_torch/rpc/admission.py:126": ('TenantAdmission._lock', 51),
     "rocksplicator_tpu_torch/rpc/admission.py:68": ('TokenBucket._lock', 52),
     "rocksplicator_tpu_torch/storage/archive.py:64": ('WalArchiver._mutex', 53),
-    "rocksplicator_tpu_torch/tools/chaos_soak.py:2159": ('_BgWriter._lock', 54),
-    "rocksplicator_tpu_torch/tools/chaos_soak.py:2880": ('_ShardWriter._lock', 55),
+    "rocksplicator_tpu_torch/tools/chaos_soak.py:2195": ('_BgWriter._lock', 54),
+    "rocksplicator_tpu_torch/tools/chaos_soak.py:2917": ('_ShardWriter._lock', 55),
     "rocksplicator_tpu_torch/testing/failpoints.py:130": ('_Site.lock', 56),
     "rocksplicator_tpu_torch/utils/stats.py:202": ('_ThreadBuffer.lock', 57),
     "rocksplicator_tpu_torch/kafka/broker.py:205": ('kafka.broker:_clusters_lock', 58),

@@ -220,6 +220,7 @@ import argparse
 import asyncio
 import contextlib
 import json
+import logging
 import os
 import random
 import shutil
@@ -879,6 +880,41 @@ FAILOVER_PASS_BOUND = 80
 # bound scales with the 30 s heal timeout the reshard checks use
 RESHARD_PASS_BOUND = 160
 _LEADERLIKE = {"LEADER", "MASTER"}
+# how long a schedule waits, before its first write, for every replica's
+# state to equal the controller's published assignment (_wait_settled)
+SETTLE_TIMEOUT_S = 30.0
+
+
+def _settled(cluster: "FailoverCluster") -> bool:
+    """Every node's participant holds each partition in the state its
+    published assignment gives it (and holds no other), and every
+    assigned partition has a leader among the assignments."""
+    from rocksplicator_tpu_torch.cluster.model import (cluster_path,
+                                                       decode_assignments)
+
+    led, assigned = set(), set()
+    for n in cluster.nodes:
+        raw = cluster.client.get_or_none(cluster_path(
+            cluster.cluster, "assignments", n.instance.instance_id))
+        want = {p: t.state for p, t in decode_assignments(
+            bytes(raw or b"")).items()}
+        if n.participant.current_states != want:
+            return False
+        assigned |= set(want)
+        led |= {p for p, st in want.items() if st in _LEADERLIKE}
+    return assigned <= led
+
+
+def _wait_settled(cluster: "FailoverCluster") -> None:
+    """Wait until the cluster is settled (``_settled``): a schedule that
+    starts writing while a previous heal or a lapsed session still moves
+    leadership finds a closing DB or no leader (F22). Port-only; a
+    cluster that does not settle in ``SETTLE_TIMEOUT_S`` is logged and
+    left to the schedule's own checks."""
+    t0 = time.monotonic()
+    if not cluster.wait(lambda: _settled(cluster), SETTLE_TIMEOUT_S):
+        logging.getLogger(__name__).warning(
+            "cluster not settled after %.1f s", time.monotonic() - t0)
 
 
 class FailoverNode:
@@ -2404,6 +2440,7 @@ def _reshard_schedule(kind: str):
         from rocksplicator_tpu_torch.cluster.model import cluster_path
 
         partition = cluster.partitions[0]
+        _wait_settled(cluster)
         cluster.write_some(rng, tag + "-pre", rng.randint(4, 8), acked)
         # generous window: the PREVIOUS schedule's healed participants
         # (rejoins, deposed resyncs, late drops) may still be settling
@@ -3004,6 +3041,7 @@ def _rebalance_schedule(kind: str):
             db_name_to_partition_name, segment_to_db_name)
 
         want_split = kind == "rebalance_split_hot"
+        _wait_settled(cluster)
         leaves = _split_leaves(cluster)
         hot, cold = leaves[0], leaves[1:]
         hot_db = segment_to_db_name(cluster.segment, hot)
@@ -3023,8 +3061,14 @@ def _rebalance_schedule(kind: str):
             for i in range(120):
                 for prefix in (b"a", b"z"):
                     key = prefix + (b"%05d" % i)
-                    waiters.append((key, app.write_async(
-                        WriteBatch().put(key, key))))
+                    try:
+                        waiters.append((key, app.write_async(
+                            WriteBatch().put(key, key))))
+                    except Exception:
+                        # the leader's DB closed under the preload (a
+                        # leadership change): not acked, as write_some
+                        # counts a raise (F22)
+                        continue
             for key, w in waiters:
                 try:
                     w.future.result(5.0)

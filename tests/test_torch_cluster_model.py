@@ -80,7 +80,7 @@ def _scenario(seed: int) -> dict:
             "epochs": epochs, "pins": pins, "splits": splits}
 
 
-def _assign(key: str, sc: dict):
+def _assign(key: str, sc: dict, **kw):
     model = _mod(key, "model")
     ctrl = _mod(key, "controller")
     instances = {iid: model.InstanceInfo(iid, iid.split("_")[0],
@@ -94,7 +94,7 @@ def _assign(key: str, sc: dict):
         model.ResourceDef(**sc["resource"]), instances,
         copy.deepcopy(sc["current"]), per_instance, epochs,
         pins={p: model.PlacementPin(**d) for p, d in sc["pins"].items()},
-        splits=[model.SplitRecord(**d) for d in sc["splits"]])
+        splits=[model.SplitRecord(**d) for d in sc["splits"]], **kw)
     shards = ctrl.effective_shards(
         model.ResourceDef(**sc["resource"]),
         [model.SplitRecord(**d) for d in sc["splits"]])
@@ -107,6 +107,92 @@ def _assign(key: str, sc: dict):
 def test_assign_resource_equals_reference(seed):
     sc = _scenario(seed)
     assert _assign("port", sc) == _assign("ref", sc)
+
+
+def _in_flight_scenario():
+    """The ledger names a placed replica whose promotion is in flight (it
+    reports FOLLOWER, no replica claims yet) while a better-ranked
+    replica already serves."""
+    live = [f"10.0.0.{i}_{9090 + i}" for i in range(3)]
+    sc = {"resource": {"segment": "seg", "num_shards": 1, "replicas": 3,
+                       "state_model": "LeaderFollower"},
+          "live": live, "pins": {}, "splits": [], "epochs": {},
+          "current": {}}
+    ranked = sorted(live, key=lambda iid: _mod("ref", "controller")
+                    ._rendezvous("seg_0", iid), reverse=True)
+    sc["epochs"] = {"seg_0": {"epoch": 1, "leader": ranked[1]}}
+    sc["current"] = {iid: {"seg_0": "FOLLOWER"} for iid in live}
+    return sc, ranked
+
+
+def _leaders(key, sc, **kw):
+    per, changed, epochs, _ = _assign(key, sc, **kw)
+    return ([iid for iid, asg in per.items()
+             if asg["seg_0"]["state"] == "LEADER"], changed,
+            epochs["seg_0"])
+
+
+def test_assign_resource_keeps_an_in_flight_ledger_leader():
+    """F23: within the grace (``promoting``) the port keeps the ledger's
+    leader and mints nothing; the reference, and the port past the
+    grace, mint a new epoch for the best-ranked serving replica."""
+    sc, ranked = _in_flight_scenario()
+    minted = ([ranked[0]], ["seg_0"], {"epoch": 2, "leader": ranked[0]})
+    assert _leaders("ref", sc) == minted
+    assert _leaders("port", sc) == minted
+    assert _leaders("port", sc, promoting=set()) == minted
+    assert _leaders("port", sc, promoting={"seg_0"}) == (
+        [ranked[1]], [], {"epoch": 1, "leader": ranked[1]})
+    # a ledger leader in ERROR has failed its promotion: no grace
+    sc["current"][ranked[1]]["seg_0"] = "ERROR"
+    assert _leaders("port", sc, promoting={"seg_0"}) == minted
+
+
+def test_in_grace_drops_old_and_superseded_records():
+    ctrl = _mod("port", "controller")
+    grace = ctrl.PROMOTION_GRACE
+    minted = {"a": (3, 100.0), "b": (1, 100.0), "c": (2, 90.0)}
+    epochs = {"a": {"epoch": 3, "leader": "x"},
+              "b": {"epoch": 2, "leader": "y"},  # superseded
+              "c": {"epoch": 2, "leader": "z"}}
+    assert ctrl.in_grace(minted, epochs, 100.0 + grace / 2) == {"a"}
+    assert minted == {"a": (3, 100.0)}
+    assert ctrl.in_grace(minted, epochs, 100.0 + grace) == set()
+    assert minted == {}
+
+
+def test_a_ledger_leader_that_never_promotes_is_replaced_within_grace():
+    """The controller's passes as ``Controller.reconcile`` runs them, on a
+    clock: the leader minted at t = 0 never reports LEADER. Each pass
+    before the grace keeps it and mints nothing; the first pass past it
+    mints the best-ranked serving replica, and once that one claims, the
+    partition has one leader and the ledger stays."""
+    ctrl = _mod("port", "controller")
+    grace = ctrl.PROMOTION_GRACE
+    sc, ranked = _in_flight_scenario()
+    sc["epochs"], minted, history = {}, {}, []
+    sc["current"] = {iid: {"seg_0": "OFFLINE"} for iid in sc["live"]}
+    for t in [0.0, 1.0, grace / 2, grace - 0.5, grace, grace + 1.0]:
+        promoting = ctrl.in_grace(minted, sc["epochs"], t)
+        per, changed, epochs, _ = _assign("port", sc, promoting=promoting)
+        for partition in changed:
+            minted[partition] = (epochs[partition]["epoch"], t)
+        sc["epochs"] = epochs
+        leader = [iid for iid, asg in per.items()
+                  if asg["seg_0"]["state"] == "LEADER"]
+        history.append((t, leader, epochs["seg_0"]["epoch"]))
+        # every replica but the one the first pass minted serves; that
+        # one never gets past its promotion, and the second one does
+        for iid in sc["live"]:
+            if iid != history[0][1][0]:
+                sc["current"][iid]["seg_0"] = (
+                    "LEADER" if leader == [iid] else "FOLLOWER")
+    first = history[0][1]
+    assert first == [ranked[0]]
+    assert [h for h in history if h[0] < grace] == [
+        (t, first, 1) for t in [0.0, 1.0, grace / 2, grace - 0.5]]
+    assert history[-2] == (grace, [ranked[1]], 2)
+    assert history[-1] == (grace + 1.0, [ranked[1]], 2)
 
 
 def test_assign_resource_sequence_equals_reference():

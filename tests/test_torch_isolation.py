@@ -106,7 +106,8 @@ seam = {"gpu", "gpu.backend", "gpu.chunked", "gpu.format",
         "cluster.config_generator", "cluster.stats_aggregator",
         "cluster.shard_move", "cluster.shard_split", "cluster.spectator",
         "cluster.shardmap_agent", "tools.chaos_soak",
-        "tools.metrics_smoke"}
+        "tools.metrics_smoke", "ops.merge_network", "tools.rpcgrep",
+        "tools.latency_proxy"}
 missing = {m for m in seam if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 print("IMPORTED", len(names))
@@ -130,6 +131,37 @@ model, args = entry(device="cpu")
 out = model(*args)
 assert int(out["count"]) > 0
 print("RAISES_WITHOUT_CUDA")
+
+# the merge of pre-sorted runs: its plain tree on CPU tensors, and no
+# quiet fallback on a device that is neither the CPU nor a card
+import numpy as np
+from rocksplicator_tpu_torch.models.compaction_model import (
+    FORWARD_ARGS, synth_counter_batch)
+from rocksplicator_tpu_torch.ops import merge_network
+from rocksplicator_tpu_torch.ops.compaction_kernel import merge_resolve_plain
+lanes = [torch.arange(16, dtype=torch.int32).view(4, 4)]
+assert merge_network.merge_sorted_lanes(lanes, 1)[0].tolist() == sorted(
+    range(16))
+try:
+    merge_network.merge_sorted_lanes([lanes[0].to("meta")], 1)
+except ValueError:
+    pass
+else:
+    raise AssertionError("merge_sorted_lanes ran on a meta tensor")
+batch = synth_counter_batch(256, seed=3)
+flat = [torch.from_numpy(batch[k].view("int32") if batch[k].dtype.kind
+                         == "u" else batch[k]) for k in FORWARD_ARGS]
+order = torch.from_numpy(np.lexsort((-batch["seq_lo"].astype(np.int64),
+                                     batch["key_words_be"][:, 1],
+                                     batch["key_words_be"][:, 0])))
+flat = [x[order] for x in flat]
+runs = [x.reshape((1, 256) + tuple(x.shape[1:])) for x in flat]
+kw, kl, shi, slo = (runs[i] for i in range(4))
+assert merge_network.runs_are_sorted(kw, kl, shi, slo, runs[7])
+got = merge_network.merge_resolve_runs_kernel(*runs)
+want = merge_resolve_plain(*flat)
+assert all(torch.equal(got[k], want[k]) for k in want)
+print("MERGE_NETWORK_ON_CPU")
 
 # the engine seam on the CPU: merge two runs into a file and read it back
 import struct, tempfile
@@ -508,6 +540,7 @@ def test_port_imports_without_jax_and_refuses_cpu_fallback():
     n = int(re.search(r"IMPORTED (\d+)", res.stdout).group(1))
     assert n >= 15, res.stdout
     assert "RAISES_WITHOUT_CUDA" in res.stdout
+    assert "MERGE_NETWORK_ON_CPU" in res.stdout
     assert "SEAM_ON_CPU" in res.stdout
     assert "BATCH_ON_CPU" in res.stdout
     assert "BATCH_COMPACTOR_ON_CPU" in res.stdout

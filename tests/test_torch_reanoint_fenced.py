@@ -407,3 +407,39 @@ def test_promotion_waits_for_every_serving_replicas_seq(
                                match="seq of peer unreadable"):
                 model.on_become_leader_from_follower()
             assert ctx.calls == ["unlock"]
+
+
+# -- F23: no promotion from a superseded assignment --------------------------
+
+
+@pytest.mark.parametrize("ledger_leader,port_promotes", [
+    # the ledger names this replica, or holds no record: both promote
+    ("me", True), (None, True),
+    # the controller minted another replica's epoch while this promotion
+    # was in flight (its assignment is stale): the reference promotes a
+    # second leader, whose acked writes the ledger's leader never holds;
+    # the port refuses and replans
+    ("peer", False),
+], ids=["ledger_names_me", "no_record", "superseded"])
+def test_promotion_refuses_a_superseded_assignment(ledger_leader,
+                                                   port_promotes):
+    for key, promotes in (("ref", True), ("port", port_promotes)):
+        mod = importlib.import_module(
+            ("rocksplicator_tpu" if key == "ref"
+             else "rocksplicator_tpu_torch")
+            + ".cluster.state_models.leader_follower")
+        base = importlib.import_module(
+            ("rocksplicator_tpu" if key == "ref"
+             else "rocksplicator_tpu_torch")
+            + ".cluster.state_models.base")
+        ctx = _FencedCtx(None, 50, key=key)
+        ctx._ledger_leader = ledger_leader
+        model = mod.LeaderFollowerStateModel("seg_0", ctx)
+        if promotes:
+            model.on_become_leader_from_follower()
+            assert ctx.calls == ["role LEADER", "checkpoint 57", "unlock"]
+        else:
+            with pytest.raises(base.TransitionError,
+                               match="epoch ledger names peer"):
+                model.on_become_leader_from_follower()
+            assert ctx.calls == ["unlock"]
